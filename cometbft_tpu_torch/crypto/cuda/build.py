@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles on its own into
+``build/lib<name>.so`` with a plain C interface, and is loaded with
+``ctypes`` (no PyTorch headers: a file that includes them takes minutes
+to compile, one with a C interface seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o build/lib<name>.so csrc/<name>.cu
+
+A library is built at first use, or again when a source it depends on is
+newer. ``build_all`` starts one ``nvcc`` per stale library, all at once,
+and waits for them. The compiler's ``-Xptxas=-v`` report (registers,
+spills, stack per kernel) is kept beside each library as ``<name>.log``.
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Sequence
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+# library name -> (its .cu, then every header it includes)
+SOURCES: Dict[str, Sequence[str]] = {
+    "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh"),
+    "sha256": ("sha256.cu", "sha256.cuh"),
+    "merkle": ("merkle.cu", "sha256.cuh"),
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def log_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}.log")
+
+
+def _stale(name: str) -> bool:
+    so = lib_path(name)
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(
+        os.path.getmtime(os.path.join(CSRC_DIR, src)) > built
+        for src in SOURCES[name]
+    )
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Build every stale library in ``names`` (default: all), one nvcc
+    each, started together. Returns {name: seconds} for those built;
+    raises RuntimeError with the compiler's output if any build fails."""
+    names = list(SOURCES if names is None else names)
+    stale = [n for n in names if _stale(n)]
+    if not stale:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in stale:
+        tmp = lib_path(name) + f".{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name][0])]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+        )
+    seconds: Dict[str, float] = {}
+    failed: List[str] = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        with open(log_path(name), "w", encoding="utf-8") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def load(name: str, signatures: Dict[str, List[type]]) -> ctypes.CDLL:
+    """The built library ``name`` with each C function in ``signatures``
+    declared (argument types as given, an int return)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(lib_path(name))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as the C entry points take it."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda_tensor(t, what: str, dtype, shape_ndim: int) -> None:
+    """Raise on anything a kernel does not take: the wrong dtype, rank,
+    device, or a non-contiguous layout."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != shape_ndim:
+        raise ValueError(f"{what}: expected {shape_ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

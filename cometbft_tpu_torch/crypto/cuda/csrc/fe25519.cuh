@@ -1,0 +1,323 @@
+// GF(2^255-19) and edwards25519 point arithmetic for one CUDA thread.
+//
+// Replaces the limb arithmetic of cometbft_tpu/crypto/tpu/field.py and the
+// point layer of cometbft_tpu/crypto/tpu/ed25519_batch.py (:119-213). The
+// TPU form is int32[17,B] radix-2^15 signed limbs because its vector lanes
+// have no 32x32->64 multiply; Hopper has one (IMAD.WIDE.U32), so this file
+// uses ref10's ten limbs of 26/25 bits held as uint32, with uint64 column
+// sums. The same arithmetic, limb for limb, is the torch twin in
+// crypto/cuda/field.py, which the CPU tests hold against Python ints.
+//
+// Invariant ("carried form"): every limb is below 2^26 (even index) or
+// 2^25 (odd index), except limb 1, which may exceed 2^25 by at most 2^15.
+// fe_sub adds 2p before subtracting, so nothing goes negative; a product
+// column is at most ten terms below 2^57 each, so it stays below 2^61.
+
+#pragma once
+#include <stdint.h>
+
+#define FE_FN __device__ __forceinline__
+
+struct fe {
+  uint32_t v[10];
+};
+
+// 2p, limb by limb: sub(a, b) = a + 2p - b stays non-negative in carried form
+#define FE_2P_EVEN 0x7FFFFFEu  // 2 * (2^26 - 1), limbs 2, 4, 6, 8
+#define FE_2P_ODD 0x3FFFFFEu   // 2 * (2^25 - 1)
+#define FE_2P_0 0x7FFFFDAu     // 2 * (2^26 - 19)
+
+// One sequential floor-carry pass; the carry out of limb 9 folds back as
+// 19 (2^255 = 19 mod p), then limb 0 carries once more into limb 1.
+FE_FN void fe_carry64(fe &out, uint64_t h[10]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int w = (i & 1) ? 25 : 26;
+    h[i + 1] += h[i] >> w;
+    h[i] &= (1ull << w) - 1;
+  }
+  const uint64_t c9 = h[9] >> 25;
+  h[9] &= (1ull << 25) - 1;
+  h[0] += 19 * c9;
+  h[1] += h[0] >> 26;
+  h[0] &= (1ull << 26) - 1;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.v[i] = (uint32_t)h[i];
+}
+
+FE_FN void fe_carry32(fe &out, uint32_t h[10]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int w = (i & 1) ? 25 : 26;
+    h[i + 1] += h[i] >> w;
+    h[i] &= (1u << w) - 1;
+  }
+  const uint32_t c9 = h[9] >> 25;
+  h[9] &= (1u << 25) - 1;
+  h[0] += 19 * c9;
+  h[1] += h[0] >> 26;
+  h[0] &= (1u << 26) - 1;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.v[i] = h[i];
+}
+
+FE_FN void fe_add(fe &out, const fe &a, const fe &b) {
+  uint32_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) h[i] = a.v[i] + b.v[i];
+  fe_carry32(out, h);
+}
+
+FE_FN void fe_sub(fe &out, const fe &a, const fe &b) {
+  uint32_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t two_p = (i == 0) ? FE_2P_0 : ((i & 1) ? FE_2P_ODD : FE_2P_EVEN);
+    h[i] = a.v[i] + two_p - b.v[i];
+  }
+  fe_carry32(out, h);
+}
+
+FE_FN void fe_neg(fe &out, const fe &a) {
+  fe zero;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) zero.v[i] = 0;
+  fe_sub(out, zero, a);
+}
+
+// Schoolbook 10x10 product: a product of two odd limbs lands one bit high
+// (x2), a product past limb 9 wraps with 2^255 = 19 (x19).
+FE_FN void fe_mul(fe &out, const fe &f, const fe &g) {
+  uint32_t g19[10], f2[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    g19[i] = 19u * g.v[i];
+    f2[i] = (i & 1) ? 2u * f.v[i] : f.v[i];
+  }
+  uint64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      const uint32_t fi = (i & 1) && (j & 1) ? f2[i] : f.v[i];
+      const uint32_t gj = (i + j >= 10) ? g19[j] : g.v[j];
+      h[(i + j) % 10] += (uint64_t)fi * gj;
+    }
+  }
+  fe_carry64(out, h);
+}
+
+// The same columns as fe_mul(f, f) from 55 products instead of 100: each
+// pair i < j is taken once and doubled. The multiplier m * f[j] stays below
+// 2^32 (m <= 76, f[j] < 2^25 + 2^15 where m has the odd-pair factor 2).
+FE_FN void fe_sq(fe &out, const fe &f) {
+  uint64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = i; j < 10; ++j) {
+      uint32_t m = (i == j) ? 1u : 2u;
+      if ((i & 1) && (j & 1)) m *= 2u;
+      if (i + j >= 10) m *= 19u;
+      h[(i + j) % 10] += (uint64_t)f.v[i] * (m * f.v[j]);
+    }
+  }
+  fe_carry64(out, h);
+}
+
+FE_FN void fe_sq_n(fe &out, const fe &f, int n) {
+  fe_sq(out, f);
+  for (int i = 1; i < n; ++i) fe_sq(out, out);
+}
+
+// x^(p-2), ref10's addition chain.
+FE_FN void fe_invert(fe &out, const fe &x) {
+  fe t0, t1, t2, t3;
+  fe_sq(t0, x);             // 2
+  fe_sq_n(t1, t0, 2);       // 8
+  fe_mul(t1, x, t1);        // 9
+  fe_mul(t2, t0, t1);       // 11
+  fe_sq(t3, t2);            // 22
+  fe_mul(t3, t1, t3);       // 2^5 - 1
+  fe_sq_n(t0, t3, 5);
+  fe_mul(t1, t0, t3);       // t4 = 2^10 - 1
+  fe_sq_n(t0, t1, 10);
+  fe_mul(t3, t0, t1);       // t5 = 2^20 - 1
+  fe_sq_n(t0, t3, 20);
+  fe_mul(t0, t0, t3);       // t6 = 2^40 - 1
+  fe_sq_n(t0, t0, 10);
+  fe_mul(t3, t0, t1);       // t5 = 2^50 - 1
+  fe_sq_n(t0, t3, 50);
+  fe_mul(t1, t0, t3);       // t6 = 2^100 - 1
+  fe_sq_n(t0, t1, 100);
+  fe_mul(t0, t0, t1);       // t7 = 2^200 - 1
+  fe_sq_n(t0, t0, 50);
+  fe_mul(t0, t0, t3);       // t6 = 2^250 - 1
+  fe_sq_n(t0, t0, 5);
+  fe_mul(out, t0, t2);      // 2^255 - 21
+}
+
+// x^((p-5)/8) = x^(2^252-3), ref10's fe_pow22523 chain.
+FE_FN void fe_pow_p58(fe &out, const fe &x) {
+  fe t0, t1, t2, t3;
+  fe_sq(t0, x);             // 2
+  fe_sq_n(t1, t0, 2);       // 8
+  fe_mul(t1, x, t1);        // 9
+  fe_mul(t0, t0, t1);       // 11
+  fe_sq(t0, t0);            // 22
+  fe_mul(t0, t1, t0);       // 2^5 - 1
+  fe_sq_n(t1, t0, 5);
+  fe_mul(t1, t1, t0);       // 2^10 - 1
+  fe_sq_n(t2, t1, 10);
+  fe_mul(t2, t2, t1);       // 2^20 - 1
+  fe_sq_n(t3, t2, 20);
+  fe_mul(t3, t3, t2);       // 2^40 - 1
+  fe_sq_n(t2, t3, 10);
+  fe_mul(t2, t2, t1);       // 2^50 - 1
+  fe_sq_n(t3, t2, 50);
+  fe_mul(t3, t3, t2);       // 2^100 - 1
+  fe_sq_n(t1, t3, 100);
+  fe_mul(t1, t1, t3);       // 2^200 - 1
+  fe_sq_n(t1, t1, 50);
+  fe_mul(t1, t1, t2);       // 2^250 - 1
+  fe_sq_n(t1, t1, 2);
+  fe_mul(out, t1, x);       // 2^252 - 3
+}
+
+// Carried form -> the unique limbs of the value in [0, p). Two full passes
+// leave every limb in range and the value below 2^255 < 2p; then p is
+// subtracted once if the value is not below it.
+FE_FN void fe_canonical(fe &out, const fe &x) {
+  uint32_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) h[i] = x.v[i];
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int w = (i & 1) ? 25 : 26;
+      h[i + 1] += h[i] >> w;
+      h[i] &= (1u << w) - 1;
+    }
+    const uint32_t c9 = h[9] >> 25;
+    h[9] &= (1u << 25) - 1;
+    h[0] += 19 * c9;
+  }
+  uint32_t d[10];
+  int32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int w = (i & 1) ? 25 : 26;
+    const int32_t p_i = (i == 0) ? 0x3FFFFED : (int32_t)((1u << w) - 1);
+    int32_t t = (int32_t)h[i] - p_i - borrow;
+    borrow = t < 0;
+    d[i] = (uint32_t)(t + (borrow << w));
+  }
+  // borrow out: the value was below p, keep it
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.v[i] = borrow ? h[i] : d[i];
+}
+
+FE_FN bool fe_eq(const fe &a, const fe &b) {
+  fe ca, cb;
+  fe_canonical(ca, a);
+  fe_canonical(cb, b);
+  bool same = true;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) same &= ca.v[i] == cb.v[i];
+  return same;
+}
+
+// Eight little-endian u32 words -> limbs of the low 255 bits (bit 255 is
+// the sign bit and is left out).
+FE_FN void fe_from_words(fe &out, const uint32_t w[8]) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int off = (i * 51 + 1) / 2;  // ceil(25.5 i)
+    const int width = (i & 1) ? 25 : 26;
+    const int j = off / 32, k = off % 32;
+    uint64_t win = w[j];
+    if (j + 1 < 8) win |= (uint64_t)w[j + 1] << 32;
+    out.v[i] = (uint32_t)(win >> k) & ((1u << width) - 1);
+  }
+}
+
+// Canonical limbs -> eight little-endian u32 words (bits 0..254).
+FE_FN void fe_to_words(uint32_t w[8], const fe &c) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int off = (i * 51 + 1) / 2;
+    const int j = off / 32, k = off % 32;
+    w[j] |= c.v[i] << k;
+    if (k != 0 && j + 1 < 8) w[j + 1] |= c.v[i] >> (32 - k);
+  }
+}
+
+// --- points: extended (X, Y, Z, T), a = -1 ----------------------------------
+
+struct ge {
+  fe X, Y, Z, T;
+};
+
+struct ge_cached {
+  fe YplusX, YminusX, T2d, Z2;
+};
+
+// dbl-2008-hwcd; valid for every input, identity included.
+FE_FN void ge_dbl(ge &r, const ge &p) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sq(a, p.X);
+  fe_sq(b, p.Y);
+  fe_sq(t, p.Z);
+  fe_add(c, t, t);
+  fe_neg(d, a);
+  fe_add(t, p.X, p.Y);
+  fe_sq(e, t);
+  fe_sub(e, e, a);
+  fe_sub(e, e, b);
+  fe_add(g, d, b);
+  fe_sub(f, g, c);
+  fe_sub(h, d, b);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
+// add-2008-hwcd-3 with q cached; complete on edwards25519.
+FE_FN void ge_add_cached(ge &r, const ge &p, const ge_cached &q) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sub(t, p.Y, p.X);
+  fe_mul(a, t, q.YminusX);
+  fe_add(t, p.Y, p.X);
+  fe_mul(b, t, q.YplusX);
+  fe_mul(c, p.T, q.T2d);
+  fe_mul(d, p.Z, q.Z2);
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
+FE_FN void ge_to_cached(ge_cached &r, const ge &p, const fe &d2) {
+  fe_add(r.YplusX, p.Y, p.X);
+  fe_sub(r.YminusX, p.Y, p.X);
+  fe_mul(r.T2d, p.T, d2);
+  fe_add(r.Z2, p.Z, p.Z);
+}
+
+FE_FN void ge_add(ge &r, const ge &p, const ge &q, const fe &d2) {
+  ge_cached qc;
+  ge_to_cached(qc, q, d2);
+  ge_add_cached(r, p, qc);
+}

@@ -1,0 +1,88 @@
+"""Ed25519 vectors for the verify contract, made from a seed.
+
+Each case is (label, public key, message, signature). They cover what the
+reference's contract names (cometbft_tpu/crypto/tpu/ed25519_batch.py:33-42)
+and what its tests probe: valid signatures; a corrupted R, S or message;
+a wrong key; s >= L; a non-canonical A; identity and small-order keys;
+-0; a non-canonical R; a key that does not decompress; and a mixed batch.
+``chip_smoke.py`` holds the kernel against its plain version and the CPU
+verifier on them; the CPU tests hold the plain version against the
+reference package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import purepy
+
+Case = Tuple[str, bytes, bytes, bytes]
+
+
+def _flip(b: bytes, byte: int, mask: int) -> bytes:
+    out = bytearray(b)
+    out[byte] ^= mask
+    return bytes(out)
+
+
+def _crafted(pk: bytes, s: int) -> bytes:
+    """A signature that verifies against a key whose point is the
+    identity: R = encode([s]B), S = s (then [h](-A) vanishes)."""
+    return purepy.pt_encode(purepy.pt_mul(s, purepy.B)) + s.to_bytes(32, "little")
+
+
+def edge_cases(seed: int = 7) -> List[Case]:
+    rng = np.random.default_rng(seed)
+    p = purepy.P
+    keys = [ed.gen_priv_key_from_secret(b"edge-%d" % i) for i in range(4)]
+    msgs = [rng.bytes(int(rng.integers(0, 120))) for _ in range(4)]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    pks = [k.pub_key().bytes() for k in keys]
+    ident = (1).to_bytes(32, "little")
+    ident_noncanon = (p + 1).to_bytes(32, "little")  # y = p + 1 = 1 mod p
+    minus_zero = (1 | (1 << 255)).to_bytes(32, "little")  # x = -0, y = 1
+    order2 = (p - 1).to_bytes(32, "little")  # (0, -1)
+    order4 = (0).to_bytes(32, "little")  # (±sqrt(-1), 0)
+    s_over = int.from_bytes(sigs[0][32:], "little") + purepy.L
+    cases: List[Case] = [
+        ("valid", pks[0], msgs[0], sigs[0]),
+        ("valid", pks[1], msgs[1], sigs[1]),
+        ("corrupt_r", pks[0], msgs[0], _flip(sigs[0], 0, 0x01)),
+        ("corrupt_s", pks[1], msgs[1], _flip(sigs[1], 40, 0x80)),
+        ("corrupt_msg", pks[2], msgs[2] + b"!", sigs[2]),
+        ("wrong_key", pks[3], msgs[2], sigs[2]),
+        ("s_ge_l", pks[0], msgs[0], sigs[0][:32] + s_over.to_bytes(32, "little")),
+        ("identity_key", ident, b"any message", _crafted(ident, 12345)),
+        ("noncanonical_key", ident_noncanon, b"any message", _crafted(ident, 12345)),
+        ("minus_zero_key", minus_zero, b"any message", _crafted(ident, 777)),
+        ("order2_key", order2, b"m", _crafted(ident, 4242)),
+        ("order2_key", order2, msgs[3], sigs[3]),
+        ("order4_key", order4, b"m", _crafted(ident, 99)),
+        ("order4_key_signed", _flip(order4, 31, 0x80), b"m", _crafted(ident, 99)),
+        # R = identity encoded canonically (y = 1) and non-canonically
+        # (y = p + 1): s = 0 makes [s]B + [h](-identity) the identity
+        ("canonical_r", ident, b"r", ident + bytes(32)),
+        ("noncanonical_r", ident, b"r", ident_noncanon + bytes(32)),
+        ("garbage_key", b"\xff" * 32, msgs[0], sigs[0]),
+        ("zero_sig", pks[0], msgs[0], bytes(64)),
+    ]
+    return cases
+
+
+def mixed_batch(n: int = 33, seed: int = 3) -> List[Case]:
+    """n signatures over random messages; every third has one bit flipped."""
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+    for i in range(n):
+        k = ed.gen_priv_key_from_secret(bytes([i, 1]))
+        m = rng.bytes(int(rng.integers(0, 200)))
+        s = k.sign(m)
+        label = "valid"
+        if i % 3 == 0:
+            s = _flip(s, int(rng.integers(0, 64)), 1 << int(rng.integers(0, 8)))
+            label = "flipped"
+        out.append((label, k.pub_key().bytes(), m, s))
+    return out

@@ -1,0 +1,17 @@
+"""tmhash — SHA-256 plus the 20-byte truncated variant used for addresses.
+
+Reference: crypto/tmhash/hash.go.
+"""
+
+import hashlib
+
+SIZE = 32
+TRUNCATED_SIZE = 20
+
+
+def sum(data: bytes) -> bytes:  # noqa: A001 - mirrors reference name
+    return hashlib.sha256(data).digest()
+
+
+def sum_truncated(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()[:TRUNCATED_SIZE]

@@ -1,0 +1,402 @@
+"""ValidatorSet — ordered validator set with proposer selection and the
+commit-verification hot paths.
+
+Reference: cometbft_tpu/types/validator_set.py (types/validator_set.go).
+The VerifyCommit/VerifyCommitLight/VerifyCommitLightTrusting loops
+(:685-823) go through the batch-verification boundary
+(cometbft_tpu_torch.crypto.batch): signatures are collected in order,
+verified as one batch, then the serial accept/reject/error sequencing is
+replayed against the validity mask. Errors keep the reference's types and
+messages. Verification runs on the card unless the caller passes
+``backend="cpu"``; ``hash()`` runs on the card unless the caller passes
+``device="cpu"``, which takes the host tree.
+
+Proposer selection (a deterministic weighted round-robin over proposer
+priorities) follows validator_set.go IncrementProposerPriority /
+RescalePriorities / shiftByAvgProposerPriority exactly, including Go's
+truncation-toward-zero integer division.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from cometbft_tpu_torch.crypto import batch as cryptobatch
+from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.libs import protoio
+from cometbft_tpu_torch.types.block import BlockID, Commit
+from cometbft_tpu_torch.types.validator import MAX_TOTAL_VOTING_POWER, Validator
+
+PRIORITY_WINDOW_SIZE_FACTOR = 2  # validator_set.go PriorityWindowSizeFactor
+
+_INT64_MAX = (1 << 63) - 1
+_INT64_MIN = -(1 << 63)
+
+
+def _go_div(a: int, b: int) -> int:
+    """Go integer division truncates toward zero; Python floors."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip(v: int) -> int:
+    return max(_INT64_MIN, min(_INT64_MAX, v))
+
+
+@dataclass(frozen=True)
+class Fraction:
+    """Reference: libs/math/fraction.go."""
+
+    numerator: int
+    denominator: int
+
+
+DEFAULT_TRUST_LEVEL = Fraction(1, 3)  # light.DefaultTrustLevel
+
+
+class ErrInvalidCommitSignatures(ValueError):
+    def __init__(self, want: int, got: int):
+        super().__init__(
+            f"invalid commit -- wrong set size: {want} vs {got}"
+        )
+
+
+class ErrInvalidCommitHeight(ValueError):
+    def __init__(self, want: int, got: int):
+        super().__init__(f"invalid commit -- wrong height: {want} vs {got}")
+
+
+class ErrNotEnoughVotingPowerSigned(ValueError):
+    def __init__(self, got: int, needed: int):
+        super().__init__(
+            f"invalid commit -- insufficient voting power: got {got}, needed more than {needed}"
+        )
+        self.got = got
+        self.needed = needed
+
+
+class ValidatorSet:
+    def __init__(self, validators: List[Validator]):
+        """Reference: NewValidatorSet — applies the changeset to an empty set
+        then increments proposer priority once to pick the first proposer."""
+        self.validators: List[Validator] = []
+        self.proposer: Optional[Validator] = None
+        self._total_voting_power = 0
+        if validators:
+            self._set_validators(validators)
+            self.increment_proposer_priority(1)
+
+    # -- basic accessors ---------------------------------------------------
+
+    def is_nil_or_empty(self) -> bool:
+        return len(self.validators) == 0
+
+    def size(self) -> int:
+        return len(self.validators)
+
+    def total_voting_power(self) -> int:
+        if self._total_voting_power == 0:
+            self._update_total_voting_power()
+        return self._total_voting_power
+
+    def _update_total_voting_power(self) -> None:
+        total = 0
+        for v in self.validators:
+            total += v.voting_power
+            if total > MAX_TOTAL_VOTING_POWER:
+                raise ValueError(
+                    f"total voting power exceeds MaxTotalVotingPower {MAX_TOTAL_VOTING_POWER}"
+                )
+        self._total_voting_power = total
+
+    def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
+        for i, v in enumerate(self.validators):
+            if v.address == address:
+                return i, v.copy()
+        return -1, None
+
+    def hash(self, device="cuda") -> bytes:
+        """Merkle root over SimpleValidator encodings
+        (validator_set.go:347), on the card; ``device="cpu"`` (or None)
+        computes it with the host tree."""
+        return merkle.hash_from_byte_slices(
+            [v.bytes() for v in self.validators], device=device
+        )
+
+    # -- proposer selection (validator_set.go:160-345) ---------------------
+
+    def _find_proposer(self) -> Validator:
+        proposer = None
+        for v in self.validators:
+            proposer = v if proposer is None else proposer.compare_proposer_priority(v)
+        return proposer
+
+    def increment_proposer_priority(self, times: int) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("cannot call with non-positive times")
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self.rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority + v.voting_power)
+        mostest = self._find_proposer()
+        mostest.proposer_priority = _clip(
+            mostest.proposer_priority - self.total_voting_power()
+        )
+        return mostest
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        if diff_max <= 0:
+            return
+        diff = self._compute_max_min_priority_diff()
+        if diff > diff_max:
+            ratio = (diff + diff_max - 1) // diff_max
+            for v in self.validators:
+                v.proposer_priority = _go_div(v.proposer_priority, ratio)
+
+    def _compute_max_min_priority_diff(self) -> int:
+        prios = [v.proposer_priority for v in self.validators]
+        return max(prios) - min(prios)
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority - avg)
+
+    def _compute_avg_proposer_priority(self) -> int:
+        # Go uses big.Int for the sum then big.Int.Div — *Euclidean*
+        # division (floor, for a positive divisor), unlike native int64
+        # `/` (validator_set.go:181-190). Python `//` floors: exact match.
+        total = sum(v.proposer_priority for v in self.validators)
+        return total // len(self.validators)
+
+    # -- NewValidatorSet's changeset on an empty set (validator_set.go:365-660)
+
+    def _set_validators(self, validators: List[Validator]) -> None:
+        """updateWithChangeSet with no deletes, applied to an empty set:
+        validate, give every validator the new-validator priority
+        -1.125 * total power, center, then sort by power desc, address asc."""
+        vals = sorted((v.copy() for v in validators), key=lambda v: v.address)
+        for a, b in zip(vals, vals[1:]):
+            if a.address == b.address:
+                raise ValueError(f"duplicate entry {b} in changes")
+        for v in vals:
+            if v.voting_power < 0:
+                raise ValueError(f"voting power can't be negative: {v}")
+            if v.voting_power > MAX_TOTAL_VOTING_POWER:
+                raise ValueError("to prevent clipping/overflow, voting power too large")
+        if any(v.voting_power == 0 for v in vals):
+            raise ValueError("cannot process validators with voting power 0")
+        total = sum(v.voting_power for v in vals)
+        if total > MAX_TOTAL_VOTING_POWER:
+            raise ValueError(
+                "failed to add/update validators: total voting power would exceed limit"
+            )
+        for v in vals:
+            v.proposer_priority = -(total + (total >> 3))
+        self.validators = vals
+        self._total_voting_power = total
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * total)
+        self._shift_by_avg_proposer_priority()
+        self.validators.sort(key=lambda v: (-v.voting_power, v.address))
+
+    # -- commit verification through the batch boundary --------------------
+
+    def _verify_lanes(self, lane_msgs, lane_sigs, entries, backend):
+        """Batch-verify the present lanes through the add()/verify()
+        protocol; returns one bool per entry (entry order)."""
+        if not entries:
+            return []
+        bv = cryptobatch.new_batch_verifier(backend)
+        for e in entries:
+            idx = e[0]
+            bv.add(
+                self.validators[idx].pub_key, lane_msgs[idx], lane_sigs[idx]
+            )
+        _, mask = bv.verify()
+        return mask
+
+    def verify_commit(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit: Commit,
+        backend: cryptobatch.Backend = None,
+    ) -> None:
+        """Reference: validator_set.go:667 VerifyCommit — checks ALL
+        signatures (LastCommitInfo depends on the full mask)."""
+        if self.size() != len(commit.signatures):
+            raise ErrInvalidCommitSignatures(self.size(), len(commit.signatures))
+        if height != commit.height:
+            raise ErrInvalidCommitHeight(height, commit.height)
+        if block_id != commit.block_id:
+            raise ValueError(
+                f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
+            )
+        entries = []  # (idx, val, for_block)
+        lane_msgs: list = [None] * self.size()
+        lane_sigs: list = [None] * self.size()
+        for idx, cs in enumerate(commit.signatures):
+            if cs.is_absent():
+                continue
+            val = self.validators[idx]
+            lane_msgs[idx] = commit.vote_sign_bytes(chain_id, idx)
+            lane_sigs[idx] = cs.signature
+            entries.append((idx, val, cs.for_block()))
+        mask = self._verify_lanes(lane_msgs, lane_sigs, entries, backend)
+        tallied = 0
+        needed = self.total_voting_power() * 2 // 3
+        for (idx, val, for_block), ok in zip(entries, mask):
+            if not ok:
+                raise ValueError(
+                    f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+                )
+            if for_block:
+                tallied += val.voting_power
+        if tallied <= needed:
+            raise ErrNotEnoughVotingPowerSigned(tallied, needed)
+
+    def verify_commit_light(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit: Commit,
+        backend: cryptobatch.Backend = None,
+    ) -> None:
+        """Reference: validator_set.go:722 VerifyCommitLight — early exit at
+        +2/3. Batch form: verify the minimal in-order prefix of ForBlock
+        signatures whose cumulative power crosses quorum, then replay."""
+        if self.size() != len(commit.signatures):
+            raise ErrInvalidCommitSignatures(self.size(), len(commit.signatures))
+        if height != commit.height:
+            raise ErrInvalidCommitHeight(height, commit.height)
+        if block_id != commit.block_id:
+            raise ValueError(
+                f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
+            )
+        needed = self.total_voting_power() * 2 // 3
+        # speculative prefix: assume sigs valid, stop once quorum crossed
+        entries = []
+        speculative = 0
+        lane_msgs: list = [None] * self.size()
+        lane_sigs: list = [None] * self.size()
+        for idx, cs in enumerate(commit.signatures):
+            if not cs.for_block():
+                continue
+            val = self.validators[idx]
+            entries.append((idx, val))
+            lane_msgs[idx] = commit.vote_sign_bytes(chain_id, idx)
+            lane_sigs[idx] = cs_sig(commit, idx)
+            speculative += val.voting_power
+            if speculative > needed:
+                break
+        mask = self._verify_lanes(lane_msgs, lane_sigs, entries, backend)
+        tallied = 0
+        for (idx, val), ok in zip(entries, mask):
+            if not ok:
+                raise ValueError(
+                    f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+                )
+            tallied += val.voting_power
+            if tallied > needed:
+                return
+        raise ErrNotEnoughVotingPowerSigned(tallied, needed)
+
+    def verify_commit_light_trusting(
+        self,
+        chain_id: str,
+        commit: Commit,
+        trust_level: Fraction,
+        backend: cryptobatch.Backend = None,
+    ) -> None:
+        """Reference: validator_set.go:775 VerifyCommitLightTrusting —
+        by-address lookup against a *different* (trusted) validator set,
+        double-vote detection, early exit at trust fraction."""
+        if trust_level.denominator == 0:
+            raise ValueError("trustLevel has zero Denominator")
+        total_mul = self.total_voting_power() * trust_level.numerator
+        if total_mul > _INT64_MAX:
+            raise ValueError("int64 overflow while calculating voting power needed")
+        needed = total_mul // trust_level.denominator
+        seen_vals: Dict[int, int] = {}
+        # lanes are indexed by TRUSTED-set position (seen_vals guarantees
+        # each appears once)
+        entries = []  # (val_idx, commit_idx, val), until speculative quorum
+        lane_msgs: list = [None] * self.size()
+        lane_sigs: list = [None] * self.size()
+        speculative = 0
+        double_vote: Optional[Tuple[Validator, int, int]] = None
+        for idx, cs in enumerate(commit.signatures):
+            if not cs.for_block():
+                continue
+            val_idx, val = self.get_by_address(cs.validator_address)
+            if val is None:
+                continue
+            if val_idx in seen_vals:
+                # double vote: reference errors here *after* verifying all
+                # prior sigs; record and stop collecting
+                double_vote = (val, seen_vals[val_idx], idx)
+                break
+            seen_vals[val_idx] = idx
+            lane_msgs[val_idx] = commit.vote_sign_bytes(chain_id, idx)
+            lane_sigs[val_idx] = cs_sig(commit, idx)
+            entries.append((val_idx, idx, val))
+            speculative += val.voting_power
+            if speculative > needed:
+                break
+        mask = self._verify_lanes(lane_msgs, lane_sigs, entries, backend)
+        tallied = 0
+        for (val_idx, idx, val), ok in zip(entries, mask):
+            if not ok:
+                raise ValueError(
+                    f"wrong signature (#{idx}): {commit.signatures[idx].signature.hex().upper()}"
+                )
+            tallied += val.voting_power
+            if tallied > needed:
+                return
+        if double_vote is not None:
+            val, first, second = double_vote
+            raise ValueError(f"double vote from {val} ({first} and {second})")
+        raise ErrNotEnoughVotingPowerSigned(tallied, needed)
+
+    # -- wire (validator.proto: validators=1 rep, proposer=2, total=3) -----
+
+    def encode(self) -> bytes:
+        out = b""
+        for v in self.validators:
+            out += protoio.field_message(1, v.encode())
+        if self.proposer is not None:
+            out += protoio.field_message(2, self.proposer.encode())
+        out += protoio.field_varint(3, self.total_voting_power())
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ValidatorSet":
+        r = protoio.WireReader(data)
+        vs = cls([])
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                vs.validators.append(Validator.decode(r.read_bytes()))
+            elif f == 2:
+                vs.proposer = Validator.decode(r.read_bytes())
+            elif f == 3:
+                vs._total_voting_power = r.read_varint()
+            else:
+                r.skip(wt)
+        return vs
+
+
+def cs_sig(commit: Commit, idx: int) -> bytes:
+    return commit.signatures[idx].signature

@@ -1,0 +1,144 @@
+"""The port stands alone: importing it, or chip_smoke.py, loads neither JAX
+nor any module of the reference package, and nothing falls back to the CPU
+when the card is missing.
+
+The import check runs in a fresh interpreter, so what this test process
+has already imported (the JAX package, through tests/conftest.py) does not
+hide anything. One test runs every check (see tests/test_torch_field.py
+for why each of these files holds one test).
+"""
+
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+import cometbft_tpu_torch
+from cometbft_tpu_torch.crypto import batch as port_batch
+from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.proto.gogo import Timestamp
+from cometbft_tpu_torch.types.block import (
+    BLOCK_ID_FLAG_COMMIT,
+    BlockID,
+    Commit,
+    CommitSig,
+    PartSetHeader,
+)
+from cometbft_tpu_torch.types.validator import Validator
+from cometbft_tpu_torch.types.validator_set import ValidatorSet
+
+torch.set_num_threads(1)
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_ROOT, "cometbft_tpu_torch")
+_SMOKE = os.path.join(_ROOT, "chip_smoke.py")
+
+
+def _run(args, cwd=_ROOT):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def check_imports_in_a_fresh_interpreter(tmp_path):
+    mods = sorted(
+        m.name
+        for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__, "cometbft_tpu_torch.")
+    )
+    assert "cometbft_tpu_torch.crypto.cuda.ed25519_batch" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cometbft_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "BAD []" in r.stdout, r.stdout
+
+
+def check_no_import_statement_names_them(tmp_path):
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|cometbft_tpu)\b(?!_torch)", re.M)
+    files = [_SMOKE]
+    for base, _, names in os.walk(_PKG):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            if pattern.search(f.read()):
+                offenders.append(os.path.relpath(path, _ROOT))
+    assert offenders == []
+
+
+def check_gpu_backend_raises_without_a_card(tmp_path):
+    real = torch.cuda.is_available
+    torch.cuda.is_available = lambda: False
+    try:
+        port_batch.new_batch_verifier("gpu")
+    except RuntimeError as e:
+        assert "CUDA device" in str(e)
+    else:
+        raise AssertionError("the gpu backend was built without a CUDA device")
+    finally:
+        torch.cuda.is_available = real
+
+
+def check_entry_points_default_to_the_card(tmp_path):
+    """With no backend or device named, verification and hashing go to the
+    card, so without one they raise instead of running on the CPU."""
+    priv = ed.gen_priv_key_from_secret(b"isolation")
+    vals = ValidatorSet([Validator.new(priv.pub_key(), 10)])
+    block_id = BlockID(b"\x01" * 32, PartSetHeader(1, b"\x02" * 32))
+    commit = Commit(height=1, round=0, block_id=block_id)
+    commit.signatures.append(
+        CommitSig(BLOCK_ID_FLAG_COMMIT, vals.validators[0].address, Timestamp(1, 0), b"")
+    )
+    commit.signatures[0].signature = priv.sign(commit.vote_sign_bytes("c", 0))
+    vals.verify_commit("c", block_id, 1, commit, backend="cpu")
+    assert vals.hash(device="cpu") == vals.hash(device=None)
+    real = torch.cuda.is_available
+    torch.cuda.is_available = lambda: False
+    try:
+        for what, fn in (
+            ("verify_commit", lambda: vals.verify_commit("c", block_id, 1, commit)),
+            ("new_batch_verifier", port_batch.new_batch_verifier),
+            ("hash", vals.hash),
+        ):
+            try:
+                fn()
+            except (RuntimeError, AssertionError) as e:
+                assert "CUDA" in str(e), (what, e)
+            else:
+                raise AssertionError(f"{what} ran without a CUDA device")
+    finally:
+        torch.cuda.is_available = real
+
+
+def check_chip_smoke_fails_without_a_card(tmp_path):
+    r = _run([_SMOKE])
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def check_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(_SMOKE, tmp_path / "chip_smoke.py")
+    r = _run([str(tmp_path / "chip_smoke.py")], cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_port_is_isolated_and_never_falls_back(tmp_path):
+    check_imports_in_a_fresh_interpreter(tmp_path)
+    check_no_import_statement_names_them(tmp_path)
+    check_gpu_backend_raises_without_a_card(tmp_path)
+    check_entry_points_default_to_the_card(tmp_path)
+    check_chip_smoke_fails_without_a_card(tmp_path)
+    check_chip_smoke_fails_without_the_repo(tmp_path)
