@@ -6,27 +6,59 @@ Phases, each of which fails the run (non-zero exit, no last line) if it
 goes wrong:
 
 1. build   — compile every kernel of the path from csrc/ (one nvcc per
-             source, started together) and print the seconds it took;
+             source, started together) and print the seconds it took and
+             the compiler's register, stack and spill report;
 2. kernels — hold each kernel against its plain torch version on the card:
-             Ed25519 on the contract's edge cases and a mixed batch (and
-             against the CPU verifier), SHA-256 at message lengths 0, 55,
-             56, 64, 65 and 200 in fixed and ragged form (and against
-             hashlib), Merkle roots for n in {1, 2, 3, 5, 180, 4097} (and
-             against the host tree);
+             Ed25519 (compact wire) on the contract's edge cases and a
+             mixed batch (and against the CPU verifier); the resident
+             kernel at B=180 in lane order and by a shuffled index with
+             repeats and one row out of range, and on the edge cases; the
+             device-hash kernel on the edge, device-hash and mixed cases
+             (and against the CPU verifier), which holds the card's
+             SHA-512 and reduction mod L to exactness (torsioned keys whose
+             verdict changes with h + L); SHA-256
+             at message lengths 0, 55, 56, 64, 65 and 200 in fixed and
+             ragged form (and against hashlib); Merkle roots for n in
+             {1, 2, 3, 5, 180, 4097} (and against the host tree);
 3. main    — a 180-validator set (the Cosmos Hub's active set) with seeded
-             keys and powers and a commit that all of them sign:
-             verify_commit, verify_commit_light and
-             verify_commit_light_trusting under the default backend (the
-             card, "gpu") and under "cpu" must agree,
-             as must the errors for one corrupted signature and for a
-             commit under 2/3; ValidatorSet.hash on the card must equal the
-             host tree; every kernel's launch count must be above 0;
-4. times   — host wall medians of verify_commit ("gpu" and "cpu") and
-             ValidatorSet.hash; CUDA-event medians of each kernel beside its
-             plain version and its bound (the larger of bytes over 3.35 TB/s
-             and 32-bit integer operations over the card's integer rate),
-             at the main path's shapes, where each kernel's output must
-             again equal its plain version's exactly.
+             keys and powers and a commit that all of them sign, driven
+             through the entry points a node calls, path by path, each
+             with the launch counts set to 0 just before it and read just
+             after (every kernel of the path must have launched):
+             commit        — verify_commit, verify_commit_light and
+                             verify_commit_light_trusting under the default
+                             backend (the card, "gpu") and under "cpu" must
+                             agree, verdicts and errors, for the signed
+                             commit, one corrupted signature and a commit
+                             under 2/3; they take the resident route (the
+                             first call uploads the set's keys, the rest
+                             hit); a set with one validator replaced misses
+                             and uploads again; ValidatorSet.hash on the
+                             card equals the host tree;
+             indexed flush — the 180 precommits flushed through
+                             new_batch_verifier("gpu") while the set is
+                             resident take the indexed route;
+             device hash   — under CBFT_TPU_HASH=device, verify_commit and
+                             the indexed flush still hash on the host (the
+                             key-store routes ignore the knob, as the
+                             reference's do), and with the key store
+                             emptied the flush takes
+                             ed25519_verify_full_compact;
+             window        — a 16,384-lane blocksync window (~91 commits,
+                             16 signatures corrupted) flushed with the key
+                             store empty runs as two pipelined 8,192-lane
+                             chunks and gives the expected mask;
+4. times   — host wall medians of verify_commit (resident hit, the
+             keyed compact route, "cpu"), the flushes and
+             ValidatorSet.hash; signatures per second of the window in two
+             chunks against one launch; the device's idle share over ten
+             resident verify_commit calls (torch.profiler); CUDA-event
+             medians of each kernel
+             beside its plain version and its bound (the larger of bytes
+             over 3.35 TB/s and 32-bit integer operations over the card's
+             integer rate), at the main path's shapes (B=180 and 16,384),
+             where each kernel's output must again equal its plain
+             version's exactly.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero
@@ -38,6 +70,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,10 +79,11 @@ import time
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import merkle as host_merkle
 from cometbft_tpu_torch.crypto import purepy
-from cometbft_tpu_torch.crypto.cuda import build, ed25519_batch, merkle, sha256, vectors
+from cometbft_tpu_torch.crypto.cuda import build, ed25519_batch, keystore, merkle, mesh, sha256, vectors
 from cometbft_tpu_torch.proto.gogo import Timestamp
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -82,12 +116,20 @@ FE_SQ_OPS = 2 * 55 + 21 + CARRY64_OPS  # 55 products, 21 distinct multipliers m 
 FE_ADD_OPS = 10 + 11 * 3
 FE_CANONICAL_OPS = 2 * 11 * 3 + 10 * 5
 SHA_BLOCK_OPS = 64 * 25 + 48 * 13 + 8  # rounds, schedule, feed-forward
+# SHA-512 on 64-bit words, each 64-bit add, xor, logic op or rotate two
+# 32-bit instructions: a round 40 (3 rotates and 2 xors per sigma, ch,
+# maj, 5 adds), a schedule word 26, the feed-forward 16, and 6 per byte to
+# assemble the block from the wire and the message plane.
+SHA512_BLOCK_OPS = 80 * 40 + 64 * 26 + 16 + 128 * 6
+# sc_reduce: 24 limb reads of 8, 14 folds of 6 64-bit multiply-adds (6
+# each), 46 carries of 8, 12 limbs packed at 6.
+SC_REDUCE_OPS = 24 * 8 + 14 * 6 * 6 + 46 * 8 + 12 * 6
 
+ED_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_verify.cu"
 KERNELS = {
-    "ed25519_verify_compact": (
-        "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_verify.cu",
-        "cometbft_tpu/crypto/tpu/ed25519_batch.py:338",
-    ),
+    "ed25519_verify_compact": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:338"),
+    "ed25519_verify_resident": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:805"),
+    "ed25519_verify_full_compact": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:370"),
     "sha256_blocks": (
         "cometbft_tpu_torch/crypto/cuda/csrc/sha256.cu",
         "cometbft_tpu/crypto/tpu/sha256_pallas.py:30",
@@ -117,6 +159,8 @@ def card_line() -> str:
 
 def reset_counts() -> None:
     ed25519_batch.LAUNCHES = 0
+    ed25519_batch.RESIDENT_LAUNCHES = 0
+    ed25519_batch.FULL_LAUNCHES = 0
     sha256.LAUNCHES = 0
     merkle.LAUNCHES = 0
 
@@ -124,6 +168,8 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {
         "ed25519_verify_compact": ed25519_batch.LAUNCHES,
+        "ed25519_verify_resident": ed25519_batch.RESIDENT_LAUNCHES,
+        "ed25519_verify_full_compact": ed25519_batch.FULL_LAUNCHES,
         "sha256_blocks": sha256.LAUNCHES,
         "merkle_level": merkle.LAUNCHES,
     }
@@ -181,6 +227,12 @@ def ed25519_ops_per_lane() -> int:
     canonical = 5 + 2
     digits = 127 * 8
     return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS + digits
+
+
+def live_sha512_blocks(mlen: np.ndarray) -> int:
+    """SHA-512 blocks of R || A || M summed over the lanes: what this
+    run's messages need, not the plane's capacity."""
+    return int(((64 + mlen.astype(np.int64) + 17 + 127) // 128).sum())
 
 
 # --- phase 2: kernels against their plain versions --------------------------
@@ -253,6 +305,68 @@ def check_merkle(dev) -> int:
     return err
 
 
+def to_dev(dev, *arrays):
+    return [torch.from_numpy(np.array(a, order="C")).to(dev) for a in arrays]
+
+
+def edge_columns():
+    cases = vectors.device_hash_cases(SEED) + vectors.edge_cases(SEED) + vectors.mixed_batch(33, SEED)
+    return cases, [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
+
+
+def check_resident(dev, vals, commit) -> int:
+    """The resident kernel at B=180 in lane order and by a shuffled index
+    with repeats and one row out of range, and on the edge vectors."""
+    rng = np.random.default_rng(SEED + 3)
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
+    sigs = [cs.signature for cs in commit.signatures]
+    pk_arr = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
+    err = 0
+    rows = rng.integers(0, len(pks), len(pks)).astype(np.int32)  # repeats
+    cases = [("lane order", None, np.arange(len(pks)))]
+    oob = rows.copy()
+    oob[7] = len(pks) + 3
+    cases.append(("shuffled index", oob, rows))
+    for label, index, lane_rows in cases:
+        rsh, valid = ed25519_batch._prepare_rsh_compact(pk_arr[lane_rows], [msgs[r] for r in lane_rows], [sigs[r] for r in lane_rows])
+        table, rsh_t = to_dev(dev, pk_arr, rsh)
+        idx_t = None if index is None else to_dev(dev, index)[0]
+        got = ed25519_batch.verify_kernel_resident(table, idx_t, rsh_t)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(table, idx_t, rsh_t)))
+        want = np.ones(len(pks), bool)
+        if index is not None:
+            want[7] = False
+        check((got.cpu().numpy() & valid).tolist() == want.tolist(), f"resident kernel, {label}: wrong verdicts")
+    cases_e, e_pks, e_msgs, e_sigs = edge_columns()
+    e_arr, ok = keystore.key_rows(e_pks)
+    rsh, valid = ed25519_batch._prepare_rsh_compact(e_arr, e_msgs, e_sigs)
+    table, rsh_t = to_dev(dev, e_arr, rsh)
+    got = ed25519_batch.verify_kernel_resident(table, None, rsh_t)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(table, None, rsh_t)))
+    cpu = [purepy.ed25519_verify(*c[1:]) for c in cases_e]
+    check((got.cpu().numpy() & valid & ok).tolist() == cpu, "resident kernel disagrees with the CPU verifier")
+    check(err == 0, "ed25519_verify_resident disagrees with its plain version")
+    print(f"kernels: ed25519_verify_resident B={len(pks)} lane order and shuffled index (repeats, 1 out of range), {len(cases_e)} edge lanes == plain == cpu, max_abs_err {err}")
+    return err
+
+
+def check_full_compact(dev) -> int:
+    cases, pks, msgs, sigs = edge_columns()
+    wire, msg, mlen, valid = ed25519_batch.prepare_batch_device_hash_compact(pks, msgs, sigs)
+    w, m, ml = to_dev(dev, wire, msg, mlen)
+    got = ed25519_batch.verify_kernel_full_compact(w, m, ml)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ed25519_batch.verify_full_compact_plain(w, m, ml))
+    check(err == 0, "ed25519_verify_full_compact disagrees with its plain version")
+    cpu = [purepy.ed25519_verify(*c[1:]) for c in cases]
+    check((got.cpu().numpy() & valid).tolist() == cpu, "ed25519_verify_full_compact disagrees with the CPU verifier")
+    print(f"kernels: ed25519_verify_full_compact {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, max_abs_err {err}")
+    return err
+
+
 # --- phase 3: the main path --------------------------------------------------
 
 
@@ -282,8 +396,8 @@ def outcome(fn):
         return (type(e).__name__, str(e))
 
 
-def run_main_path(vals, block_id, commit):
-    height = commit.height
+def variants(vals, commit):
+    """The signed commit, one with a corrupted signature, one under 2/3."""
     corrupted = copy.deepcopy(commit)
     sig = bytearray(corrupted.signatures[17].signature)
     sig[5] ^= 0x10
@@ -295,43 +409,207 @@ def run_main_path(vals, block_id, commit):
         absent += v.voting_power
         if (total - absent) * 3 <= total * 2:
             break
+    return {"signed": commit, "corrupted": corrupted, "under_2/3": under}
+
+
+def commit_calls(vals, block_id, c):
     trust = Fraction(1, 3)
+    return {
+        "verify_commit": lambda b: vals.verify_commit(CHAIN_ID, block_id, c.height, c, backend=b),
+        "verify_commit_light": lambda b: vals.verify_commit_light(CHAIN_ID, block_id, c.height, c, backend=b),
+        "verify_commit_light_trusting": lambda b: vals.verify_commit_light_trusting(CHAIN_ID, c, trust, backend=b),
+    }
 
-    def calls(c):
-        return {
-            "verify_commit": lambda b: vals.verify_commit(CHAIN_ID, block_id, height, c, backend=b),
-            "verify_commit_light": lambda b: vals.verify_commit_light(CHAIN_ID, block_id, height, c, backend=b),
-            "verify_commit_light_trusting": lambda b: vals.verify_commit_light_trusting(CHAIN_ID, c, trust, backend=b),
-        }
 
-    per_call = {}
+def compare_on_gpu_and_cpu(label, name, fn, per_call):
+    """fn(None) (the default backend: the card) and fn("cpu") must give the
+    same verdict or error."""
+    before = counts()
+    t0 = time.perf_counter()
+    gpu = outcome(lambda: fn(None))
+    gpu_s = time.perf_counter() - t0
+    after = counts()
+    t0 = time.perf_counter()
+    cpu = outcome(lambda: fn("cpu"))
+    cpu_s = time.perf_counter() - t0
+    check(gpu == cpu, f"{label} {name}: gpu {gpu} != cpu {cpu}")
+    per_call[f"{label} {name}"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    print(f"main: {label:9s} {name:29s} gpu == cpu: {gpu[0]:35s} host wall gpu {gpu_s * 1e3:.1f} ms, cpu {cpu_s * 1e3:.1f} ms")
+    return gpu
+
+
+def store_stats() -> dict:
+    return keystore.default_store().snapshot()["stats"]
+
+
+def rotated(vals, commit):
+    """The set with its first validator replaced by a new key of the same
+    power, and the commit with the new validator's signature (the sign
+    bytes of a commit do not depend on the signer)."""
+    new_key = ed.gen_priv_key_from_secret(b"cosmoshub-val-rotated")
+    old = vals.validators[0]
+    rot = ValidatorSet(
+        [Validator.new(v.pub_key, v.voting_power) for v in vals.validators[1:]]
+        + [Validator.new(new_key.pub_key(), old.voting_power)]
+    )
+    by_addr = {cs.validator_address: cs for cs in commit.signatures}
+    c = Commit(height=commit.height, round=commit.round, block_id=commit.block_id)
+    for v in rot.validators:
+        cs = by_addr.get(v.address)
+        c.signatures.append(copy.copy(cs) if cs is not None else CommitSig(
+            BLOCK_ID_FLAG_COMMIT, v.address, commit.signatures[0].timestamp, b""))
+    i_new = next(i for i, v in enumerate(rot.validators) if v.pub_key == new_key.pub_key())
+    c.signatures[i_new].signature = new_key.sign(c.vote_sign_bytes(CHAIN_ID, i_new))
+    return rot, c
+
+
+def precommits(vals, commit):
+    return [(v.pub_key, commit.vote_sign_bytes(CHAIN_ID, i), commit.signatures[i].signature)
+            for i, v in enumerate(vals.validators)]
+
+
+def flush(items, backend):
+    bv = cryptobatch.new_batch_verifier(backend)
+    for pk, msg, sig in items:
+        bv.add(pk, msg, sig)
+    return bv.verify()
+
+
+def commit_path(vals, block_id, commit, per_call):
+    """verify_commit* on the card against "cpu": the resident route, one
+    upload then hits; a rotated set misses; ValidatorSet.hash."""
+    keystore.default_store().invalidate()
     results = {}
-    for label, c in (("signed", commit), ("corrupted", corrupted), ("under_2/3", under)):
-        for name, fn in calls(c).items():
-            before = counts()
-            t0 = time.perf_counter()
-            gpu = outcome(lambda: fn(None))  # the default backend: the card
-            gpu_s = time.perf_counter() - t0
-            after = counts()
-            t0 = time.perf_counter()
-            cpu = outcome(lambda: fn("cpu"))
-            cpu_s = time.perf_counter() - t0
-            check(gpu == cpu, f"{label} {name}: gpu {gpu} != cpu {cpu}")
-            results[(label, name)] = gpu
-            per_call[f"{label} {name}"] = {k: after[k] - before[k] for k in after}
-            print(f"main: {label:9s} {name:29s} gpu == cpu: {gpu[0]:35s} host wall gpu {gpu_s * 1e3:.1f} ms, cpu {cpu_s * 1e3:.1f} ms")
+    base = store_stats()
+    for label, c in variants(vals, commit).items():
+        for name, fn in commit_calls(vals, block_id, c).items():
+            results[(label, name)] = compare_on_gpu_and_cpu(label, name, fn, per_call)
     check(results[("signed", "verify_commit")] == ("ok",), "the signed commit did not verify")
     check(results[("corrupted", "verify_commit")][0] == "ValueError", "the corrupted commit verified")
     check(
         results[("under_2/3", "verify_commit")][0] == "ErrNotEnoughVotingPowerSigned",
         "the under-2/3 commit verified",
     )
+    st = store_stats()
+    uploads, hits = st["uploads"] - base["uploads"], st["hits"] - base["hits"]
+    check((uploads, hits) == (1, len(results) - 1), f"resident route: {uploads} uploads and {hits} hits over {len(results)} calls")
+    print(f"main: resident route: {uploads} upload, then {hits} hits over {len(results)} verify_commit* calls")
+    rot, rot_commit = rotated(vals, commit)
+    got = compare_on_gpu_and_cpu("rotated", "verify_commit", commit_calls(rot, block_id, rot_commit)["verify_commit"], per_call)
+    check(got == ("ok",), "the rotated set's commit did not verify")
+    st2 = store_stats()
+    check(st2["uploads"] == st["uploads"] + 1 and st2["misses"] == st["misses"] + 1, "the rotated set did not miss and upload")
+    print("main: rotated set (one validator replaced): a miss and a new upload")
     before = counts()
     dev_hash = vals.hash()  # the default device: the card
-    per_call["ValidatorSet.hash"] = {k: v - before[k] for k, v in counts().items()}
+    per_call["ValidatorSet.hash"] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
     check(dev_hash == vals.hash(device="cpu"), "ValidatorSet.hash on the card != host tree")
     print(f"main: ValidatorSet.hash on the card == host tree ({dev_hash.hex()[:16]}...)")
-    return per_call
+
+
+def indexed_flush_path(vals, commit, per_call):
+    """The 180 precommits flushed by a "gpu" verifier while the set is
+    resident: the indexed route."""
+    items = precommits(vals, commit)  # the set is resident since the commit path
+    base = store_stats()["indexed_dispatches"]
+    got = flush(items, None)
+    check(got == flush(items, "cpu") == (True, [True] * len(items)), "indexed flush != cpu")
+    check(store_stats()["indexed_dispatches"] == base + 1, "the flush did not take the indexed route")
+    per_call["indexed flush"] = {k: v for k, v in counts().items() if v}
+    print(f"main: indexed flush of {len(items)} precommits == cpu, through the resident key table")
+
+
+def device_hash_path(vals, block_id, commit, per_call):
+    """CBFT_TPU_HASH=device: verify_commit and the indexed flush keep the
+    resident kernel and the host hash; with the store emptied the flush
+    takes ed25519_verify_full_compact."""
+    items = precommits(vals, commit)
+    corrupted = variants(vals, commit)["corrupted"]
+    os.environ["CBFT_TPU_HASH"] = "device"
+    try:
+        for label, c in (("signed", commit), ("corrupted", corrupted)):
+            compare_on_gpu_and_cpu(f"dh {label}", "verify_commit", commit_calls(vals, block_id, c)["verify_commit"], per_call)
+        bad = list(items)
+        pk, msg, sig = bad[17]
+        bad[17] = (pk, msg, sig[:40] + bytes([sig[40] ^ 1]) + sig[41:])
+        want = flush(bad, "cpu")
+        check(not want[0] and want[1].count(False) == 1, "the corrupted flush did not fail on cpu")
+        before = counts()
+        check(flush(bad, None) == want, "indexed flush under CBFT_TPU_HASH=device != cpu")
+        after = counts()
+        check(after["ed25519_verify_resident"] == before["ed25519_verify_resident"] + 1
+              and after["ed25519_verify_full_compact"] == before["ed25519_verify_full_compact"],
+              "the indexed flush left the resident kernel under CBFT_TPU_HASH=device")
+        keystore.default_store().invalidate()
+        before = counts()
+        check(flush(bad, None) == want, "device-hash flush != cpu")
+        check(counts()["ed25519_verify_full_compact"] == before["ed25519_verify_full_compact"] + 1,
+              "the flush did not take ed25519_verify_full_compact")
+    finally:
+        del os.environ["CBFT_TPU_HASH"]
+    per_call["device hash"] = {k: v for k, v in counts().items() if v}
+    print(f"main: CBFT_TPU_HASH=device: verify_commit and the indexed flush (host hash) and the full-wire flush of {len(items)} == cpu")
+
+
+def window_items(vals, commit):
+    """BIG_BATCH lanes tiling the commit's precommits, 16 of them with a
+    corrupted signature, and the expected mask."""
+    base = precommits(vals, commit)
+    items = [base[i % len(base)] for i in range(BIG_BATCH)]
+    want = [True] * BIG_BATCH
+    for lane in range(0, BIG_BATCH, BIG_BATCH // 16):
+        pk, msg, sig = items[lane]
+        sig = sig[:(lane % 64)] + bytes([sig[lane % 64] ^ 0x08]) + sig[lane % 64 + 1:]
+        items[lane] = (pk, msg, sig)
+        want[lane] = purepy.ed25519_verify(pk.bytes(), msg, sig)
+        check(not want[lane], f"window lane {lane}: the corrupted signature verified on cpu")
+    return items, want
+
+
+def window_path(items, want, per_call):
+    """The blocksync window flushed with the key store empty: two
+    pipelined chunks of the compact kernel."""
+    keystore.default_store().invalidate()
+    ok, mask = flush(items, None)
+    check(mask == want and not ok, "window mask != expected")
+    launched = counts()["ed25519_verify_compact"]
+    chunks = -(-BIG_BATCH // mesh.chunk_cap(ed25519_batch.MAX_CHUNK))
+    check(launched == chunks == 2, f"window ran as {launched} launches, want 2 chunks")
+    per_call["window"] = {k: v for k, v in counts().items() if v}
+    print(f"main: window of {BIG_BATCH} lanes == expected mask ({want.count(False)} rejected) in {launched} chunks")
+
+
+PATHS = {  # path -> the kernels it must launch
+    "commit": ("ed25519_verify_resident", "sha256_blocks", "merkle_level"),
+    "indexed flush": ("ed25519_verify_resident",),
+    "device hash": ("ed25519_verify_resident", "ed25519_verify_full_compact"),
+    "window": ("ed25519_verify_compact",),
+}
+
+
+def run_main_path(vals, block_id, commit):
+    """Each path with the counts set to 0 just before it and read just
+    after; returns (launches summed over the paths, per call)."""
+    items, want = window_items(vals, commit)
+    steps = {
+        "commit": lambda pc: commit_path(vals, block_id, commit, pc),
+        "indexed flush": lambda pc: indexed_flush_path(vals, commit, pc),
+        "device hash": lambda pc: device_hash_path(vals, block_id, commit, pc),
+        "window": lambda pc: window_path(items, want, pc),
+    }
+    total = {k: 0 for k in counts()}
+    per_call = {}
+    for name, step in steps.items():
+        reset_counts()
+        step(per_call)
+        torch.cuda.synchronize()
+        got = counts()
+        for kernel in PATHS[name]:
+            check(got[kernel] > 0, f"{kernel} was not launched on the {name} path")
+        print(f"main: path {name!r} launches {json.dumps({k: v for k, v in got.items() if v})}")
+        total = {k: total[k] + got[k] for k in total}
+    keystore.default_store().invalidate()
+    return total, per_call
 
 
 # --- phase 4: times ------------------------------------------------------------
@@ -366,12 +644,12 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
         errs["ed25519_verify_compact"] = max(errs["ed25519_verify_compact"], err)
         print(f"kernels: ed25519 B={batch} == plain, all {batch} accepted, max_abs_err {err}")
         ms = cuda_ms(lambda: ed25519_batch.verify_kernel_compact(w), runs=20)
-        plain_ms = cuda_ms(lambda: ed25519_batch.verify_compact_plain(w), runs=plain_runs, warmup=1)
+        plain_ms = cuda_ms(lambda: ed25519_batch.verify_compact_plain(w), runs=plain_runs, warmup=0)
         b_ms, b_by = bound(batch * (128 + 1), batch * ed25519_ops_per_lane(), int_rate)
         return ms, plain_ms, b_ms, b_by
 
-    ms, plain_ms, b_ms, b_by = ed_row(N_VALIDATORS, 5)
-    ms_big, plain_big, b_big, b_by_big = ed_row(BIG_BATCH, 3)
+    ms, plain_ms, b_ms, b_by = ed_row(N_VALIDATORS, 2)
+    ms_big, plain_big, b_big, b_by_big = ed_row(BIG_BATCH, 1)
     out["ed25519_verify_compact"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"u8[128,{N_VALIDATORS}]",
@@ -422,6 +700,68 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
     out["merkle_level"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                            "shape": f"{len(leaves)} leaf digests -> root, 8 levels"}
     print(f"time: merkle_level tree of {len(leaves)}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
+    out.update(time_new_kernels(vals, commit, card, errs, int_rate))
+    return out
+
+
+def kernel_row(name, label, kernel, plain, plain_runs, nbytes, ops, int_rate, errs, card) -> dict:
+    """One kernel at one shape: exactly equal to its plain version, then
+    CUDA-event medians of both beside the bound."""
+    got = kernel()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, plain())
+    check(err == 0, f"{name} disagrees with its plain version at {label}")
+    errs[name] = max(errs[name], err)
+    ms = cuda_ms(kernel, runs=20)
+    plain_ms = cuda_ms(plain, runs=plain_runs, warmup=0)
+    b_ms, b_by = bound(nbytes, ops, int_rate)
+    print(f"kernels: {name} {label} == plain, max_abs_err {err}")
+    print(f"time: {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "shape": label, "got": got}
+
+
+def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> dict:
+    """The resident and device-hash kernels at B=180 (one commit) and
+    B=16,384 (the window, by index into the 180 keys)."""
+    dev = torch.device("cuda")
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
+    sigs = [cs.signature for cs in commit.signatures]
+    n = len(pks)
+    pk_arr = np.frombuffer(b"".join(pks), np.uint8).reshape(n, 32)
+    rsh, valid = ed25519_batch._prepare_rsh_compact(pk_arr, msgs, sigs)
+    wire, msg, mlen, valid2 = ed25519_batch.prepare_batch_device_hash_compact(pks, msgs, sigs)
+    check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
+    ed_ops = ed25519_ops_per_lane()
+    out = {}
+    for batch, plain_runs in ((n, 2), (BIG_BATCH, 1)):
+        lanes = np.arange(batch) % n
+        idx = None if batch == n else to_dev(dev, lanes.astype(np.int32))[0]
+        table, rsh_t, w_t, msg_t, mlen_t = to_dev(dev, pk_arr, rsh[:, lanes], wire[:, lanes], msg[:, lanes], mlen[lanes])
+        idx_bytes = 0 if idx is None else 4 * batch
+        form = "lane order" if idx is None else "by index"
+        blocks = live_sha512_blocks(mlen[lanes])
+        hash_ops = blocks * SHA512_BLOCK_OPS + batch * SC_REDUCE_OPS
+        rows = {
+            "ed25519_verify_resident": kernel_row(
+                "ed25519_verify_resident", f"B={batch} {form}",
+                lambda: ed25519_batch.verify_kernel_resident(table, idx, rsh_t),
+                lambda: ed25519_batch.verify_resident_plain(table, idx, rsh_t), plain_runs,
+                n * 32 + idx_bytes + 96 * batch + batch, batch * ed_ops, int_rate, errs, card),
+            "ed25519_verify_full_compact": kernel_row(
+                "ed25519_verify_full_compact", f"B={batch} u8[{msg.shape[0]},B] messages",
+                lambda: ed25519_batch.verify_kernel_full_compact(w_t, msg_t, mlen_t),
+                lambda: ed25519_batch.verify_full_compact_plain(w_t, msg_t, mlen_t), plain_runs,
+                (96 + msg.shape[0] + 4 + 1) * batch, batch * ed_ops + hash_ops, int_rate, errs, card),
+        }
+        check(bool(rows["ed25519_verify_resident"]["got"].all()), f"resident kernel rejected a signed lane at B={batch}")
+        check(bool(rows["ed25519_verify_full_compact"]["got"].all()), f"full kernel rejected a signed lane at B={batch}")
+        for name, row in rows.items():
+            del row["got"]
+            if batch == n:
+                out[name] = row
+            else:
+                out[name].update({f"{k}_16384": v for k, v in row.items()})
     return out
 
 
@@ -437,26 +777,114 @@ def wall_ms(fn, runs: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def time_end_to_end(vals, block_id, commit, card: str) -> None:
-    """Host wall medians of the entry points a node calls per commit."""
+def wall_ms_turns(fns: dict, runs: int, turns: int = 4) -> dict:
+    """Host wall times of each fn in ms, run in turns (a, b, b, a, ...) so
+    that two routes see the same host: {name: (median, min, max)}; each
+    fn ends in a sync."""
+    times = {k: [] for k in fns}
+    for name, fn in fns.items():
+        fn()  # warm-up
+    order = list(fns)
+    for t in range(turns):
+        for name in (order if t % 2 == 0 else order[::-1]):
+            for _ in range(max(1, runs // turns)):
+                t0 = time.perf_counter()
+                fns[name]()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
+
+
+def time_end_to_end(vals, block_id, commit, window, card: str) -> None:
+    """Host wall medians of the entry points a node calls per commit, the
+    flushes, and the blocksync window."""
     height = commit.height
+    store = keystore.default_store()
 
     def verify(backend):
         return lambda: vals.verify_commit(CHAIN_ID, block_id, height, commit, backend=backend)
 
+    def keyed_route():
+        """verify_commit with the keys shipped through add()/verify() on
+        the compact wire: neither the resident nor the indexed route."""
+        real = cryptobatch.resident_commit_eligible, keystore.verify_batch_indexed
+        cryptobatch.resident_commit_eligible = lambda n_present, backend=None: False
+        keystore.verify_batch_indexed = lambda *args: None
+        try:
+            verify("gpu")()
+        finally:
+            cryptobatch.resident_commit_eligible, keystore.verify_batch_indexed = real
+
     pks = [v.pub_key.bytes() for v in vals.validators]
     msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
     sigs = [cs.signature for cs in commit.signatures]
+    pk_arr = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
+    items = precommits(vals, commit)
+    store.invalidate()
+    ab = wall_ms_turns({"resident": verify("gpu"), "compact": keyed_route}, runs=20)
+    for label, key in (("resident (hit)", "resident"), ("compact route", "compact")):
+        med, lo, hi = ab[key]
+        print(f"e2e: verify_commit gpu {label:15s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{N_VALIDATORS} validators, in turns [{card}]")
     rows = [
-        ("verify_commit gpu", wall_ms(verify("gpu"), runs=20)),
         ("verify_commit cpu", wall_ms(verify("cpu"), runs=3, warmup=0)),
         ("  of which sign bytes", wall_ms(lambda: [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))], runs=20)),
-        ("  of which host packing", wall_ms(lambda: ed25519_batch.prepare_batch_compact(pks, msgs, sigs), runs=20)),
+        ("  of which verify_commit_valset", wall_ms(lambda: cryptobatch.verify_commit_valset(pks, msgs, sigs), runs=20)),
+        ("  of which R||S||h packing", wall_ms(lambda: ed25519_batch._prepare_rsh_compact(pk_arr, msgs, sigs), runs=20)),
+        ("  of which compact packing", wall_ms(lambda: ed25519_batch.prepare_batch_compact(pks, msgs, sigs), runs=20)),
+        ("indexed flush gpu", wall_ms(lambda: flush(items, None), runs=20)),
+    ]
+    store.invalidate()
+    rows.append(("keyed flush gpu (host hash)", wall_ms(lambda: flush(items, None), runs=20)))
+    os.environ["CBFT_TPU_HASH"] = "device"
+    try:
+        rows.append(("device-hash flush gpu", wall_ms(lambda: flush(items, None), runs=20)))
+    finally:
+        del os.environ["CBFT_TPU_HASH"]
+    rows += [
         ("ValidatorSet.hash cuda", wall_ms(lambda: vals.hash(device="cuda"), runs=20)),
         ("ValidatorSet.hash host", wall_ms(lambda: vals.hash(device="cpu"), runs=20)),
     ]
     for label, ms in rows:
-        print(f"e2e: {label:25s} p50 {ms:.3f} ms host wall, {N_VALIDATORS} validators [{card}]")
+        print(f"e2e: {label:34s} p50 {ms:.3f} ms host wall, {N_VALIDATORS} validators [{card}]")
+
+    def one_launch():
+        mesh.configure_chunk_cap(BIG_BATCH)
+        try:
+            flush(window, None)
+        finally:
+            mesh.configure_chunk_cap(None)
+
+    store.invalidate()
+    w = wall_ms_turns({"two chunks": lambda: flush(window, None), "one launch": one_launch}, runs=8, turns=8)
+    for label, (ms, lo, hi) in w.items():
+        print(f"e2e: window {BIG_BATCH} lanes, {label:10s} p50 {ms:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}) "
+              f"= {BIG_BATCH / ms * 1e3:.0f} signatures/s, in turns [{card}]")
+
+
+def profile_commit(vals, block_id, commit, card: str, calls: int = 10) -> None:
+    """The device's busy and idle share over back-to-back resident
+    verify_commit calls, from a torch.profiler trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def verify():
+        vals.verify_commit(CHAIN_ID, block_id, commit.height, commit)
+
+    verify()  # the set is resident from here on
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            verify()
+        torch.cuda.synchronize()
+        wall_ms_total = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if busy_us <= 0:
+        print(f"profile: {calls} verify_commit calls, device time not measured (the trace holds no device events) [{card}]")
+        return
+    top = sorted(events, key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)[:3]
+    shares = ", ".join(f"{e.key[:40]} {e.self_device_time_total / busy_us:.1%}" for e in top)
+    print(f"profile: {calls} verify_commit calls (resident, hit): wall {wall_ms_total:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / wall_ms_total:.1%}; device time: {shares} [{card}]")
 
 
 def main() -> int:
@@ -474,28 +902,30 @@ def main() -> int:
     for name in build.SOURCES:
         with open(build.log_path(name), encoding="utf-8") as f:
             for line in f:
-                if "registers" in line or "spill" in line or "stack frame" in line:
+                if any(k in line for k in ("entry function", "Function properties", "registers", "spill", "stack frame")):
                     print(f"build: {name}: {line.strip()}")
-
-    errs = {
-        "ed25519_verify_compact": check_ed25519(dev),
-        "sha256_blocks": check_sha256(dev),
-        "merkle_level": check_merkle(dev),
-    }
 
     t0 = time.perf_counter()
     vals, block_id, commit = make_valset_and_commit()
     print(f"main: {N_VALIDATORS} validators signed in {time.perf_counter() - t0:.1f} s, total power {vals.total_voting_power()}")
-    reset_counts()
-    per_call = run_main_path(vals, block_id, commit)
-    launches = counts()
-    torch.cuda.synchronize()
+
+    errs = {
+        "ed25519_verify_compact": check_ed25519(dev),
+        "ed25519_verify_resident": check_resident(dev, vals, commit),
+        "ed25519_verify_full_compact": check_full_compact(dev),
+        "sha256_blocks": check_sha256(dev),
+        "merkle_level": check_merkle(dev),
+    }
+
+    launches, per_call = run_main_path(vals, block_id, commit)
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     print(f"main: launches {json.dumps(launches)}")
     print(f"main: launches per call {json.dumps(per_call)}")
 
-    time_end_to_end(vals, block_id, commit, card)
+    window, _ = window_items(vals, commit)
+    time_end_to_end(vals, block_id, commit, window, card)
+    profile_commit(vals, block_id, commit, card)
     times = time_kernels(vals, commit, card, errs)
     record = []
     for name, (source, replaces) in KERNELS.items():

@@ -5,13 +5,20 @@ to the serial ``PubKey.verify_signature``. Two backends:
 
 * ``"cpu"`` — the pure-Python verifier, one signature at a time; the
   semantics ground truth.
-* ``"gpu"`` — packs the batch on the host and launches the Ed25519 CUDA
-  kernel for every batch, whatever its size. The reference routes
-  batches below 1,024 to the CPU (batch.py:68-88), a floor measured over
-  the TPU's link; here a 180-lane commit goes to the card like any other.
-  A key that is not Ed25519 raises NotImplementedError: the other curves
+* ``"gpu"`` — every Ed25519 batch goes to the card, whatever its size.
+  The reference routes batches below 1,024 to the CPU (batch.py:68-88),
+  a floor measured over the TPU's link; here a 180-lane commit goes to
+  the card like any other. A flush whose keys are all in one resident
+  validator set takes the indexed route (``keystore.verify_batch_indexed``,
+  the keys stay on the card); any other takes ``ed25519_batch.verify_batch``
+  (keys shipped, chunked), as the reference's batch.py:335-344 does. A
+  key that is not Ed25519 raises NotImplementedError: the other curves
   are not ported yet, and are never verified on the CPU behind the
   caller's back.
+
+``verify_commit_valset`` is the resident commit route that
+``ValidatorSet`` takes under ``"gpu"``: the set's keys stay on the card
+across heights and each commit ships R ‖ S ‖ h.
 
 ``backend`` is a name from the registry (None means ``"gpu"``: entry
 points run on the card unless the caller asks for ``"cpu"``, and raise
@@ -21,7 +28,8 @@ as ``lambda: GPUBatchVerifier(device="cpu")``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple, Union
+import hashlib
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
@@ -80,12 +88,12 @@ class GPUBatchVerifier(_Collecting):
         super().__init__()
         import torch
 
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the gpu backend needs a CUDA device; none is available")
 
     def verify(self) -> Tuple[bool, List[bool]]:
-        from cometbft_tpu_torch.crypto.cuda import ed25519_batch
+        from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore
 
         items = self._take()
         if not items:
@@ -95,12 +103,12 @@ class GPUBatchVerifier(_Collecting):
                 raise NotImplementedError(
                     f"the gpu backend verifies ed25519 only, not {pk.type()}"
                 )
-        mask = ed25519_batch.verify_batch(
-            [pk.bytes() for pk, _, _ in items],
-            [msg for _, msg, _ in items],
-            [sig for _, _, sig in items],
-            device=self._device,
-        )
+        pks = [pk.bytes() for pk, _, _ in items]
+        msgs = [msg for _, msg, _ in items]
+        sigs = [sig for _, _, sig in items]
+        mask = keystore.verify_batch_indexed(pks, msgs, sigs, self.device)
+        if mask is None:
+            mask = ed25519_batch.verify_batch(pks, msgs, sigs, device=self.device)
         return all(mask), mask
 
 
@@ -121,3 +129,39 @@ def new_batch_verifier(backend: Backend = None) -> BatchVerifier:
     if factory is None:
         raise ValueError(f"unknown crypto backend {name!r}")
     return factory()
+
+
+def _resident_device(backend: Backend):
+    """The device of the resident commit route for ``backend``, or None
+    when it does not take that route (anything but a GPUBatchVerifier).
+    Building the verifier raises for "gpu" without a card."""
+    bv = new_batch_verifier(backend)
+    return bv.device if isinstance(bv, GPUBatchVerifier) else None
+
+
+def resident_commit_eligible(n_present: int, backend: Backend = None) -> bool:
+    """True when a commit with ``n_present`` signatures takes the
+    resident route: under "gpu" (or a callable giving a GPUBatchVerifier)
+    and never under "cpu". There is no routing floor: a one-signature
+    commit goes to the card like any other."""
+    return n_present > 0 and _resident_device(backend) is not None
+
+
+def verify_commit_valset(
+    pub_keys: List[bytes],
+    msgs: List[Optional[bytes]],
+    sigs: List[Optional[bytes]],
+    backend: Backend = None,
+) -> Optional[List[bool]]:
+    """Per-lane verdicts of a commit against its whole validator set,
+    whose keys stay resident on the card (``ed25519_batch.
+    verify_valset_resident``), or None when ``backend`` does not take the
+    resident route. Every key must be Ed25519; msgs[i]/sigs[i] None is an
+    absent lane, False in the result."""
+    device = _resident_device(backend)
+    if device is None:
+        return None
+    from cometbft_tpu_torch.crypto.cuda import ed25519_batch
+
+    valset_id = hashlib.sha256(b"".join(pub_keys)).digest()
+    return ed25519_batch.verify_valset_resident(valset_id, pub_keys, msgs, sigs, device=device)

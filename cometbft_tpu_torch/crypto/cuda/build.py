@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 # library name -> (its .cu, then every header it includes)
 SOURCES: Dict[str, Sequence[str]] = {
-    "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh"),
+    "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh", "sc25519.cuh", "sha512.cuh"),
     "sha256": ("sha256.cu", "sha256.cuh"),
     "merkle": ("merkle.cu", "sha256.cuh"),
 }

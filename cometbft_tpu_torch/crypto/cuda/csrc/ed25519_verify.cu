@@ -1,29 +1,52 @@
-// ed25519_verify_compact: cofactorless Ed25519 verification, one thread per
-// signature.
+// Cofactorless Ed25519 verification, one thread per signature: three
+// kernels over one core.
 //
-// Replaces cometbft_tpu/crypto/tpu/ed25519_batch.py::_verify_core_compact
-// (verify_kernel_compact, :338-347) -> _verify_unpacked (:274), the jitted
-// XLA program on the reference's main path.
+// verify_core replaces cometbft_tpu/crypto/tpu/ed25519_batch.py::
+// _verify_unpacked (:274), the group math that every jitted verify
+// program of the reference ends in. The kernels differ only in where a
+// lane finds A, R, s and h:
 //
-// Input: the compact wire u8[128, B], byte-major (row r of lane b at
-// r * B + b): rows 0:32 A, 32:64 R, 64:96 S, 96:128 h = SHA-512(R||A||M)
-// mod L, all little-endian. Output: u8[B], 1 where encode([s]B + [h](-A))
-// equals R byte for byte and A decompressed. The host ANDs it with its
-// validity mask (s < L, lengths), exactly as the reference does.
+// * ed25519_verify_compact replaces _verify_core_compact
+//   (verify_kernel_compact, :338-347): the compact wire u8[128, B],
+//   byte-major (row r of lane b at r * B + b): rows 0:32 A, 32:64 R,
+//   64:96 S, 96:128 h = SHA-512(R||A||M) mod L, all little-endian.
+// * ed25519_verify_resident replaces both _verify_core_resident (:805) and
+//   _verify_core_indexed (:395): A from a key table u8[N, 32] resident on
+//   the device (row-major), row b for lane b (the resident commit, index
+//   null) or row idx[b] (the indexed flush), and u8[96, B] rows R, S, h.
+//   The two reference programs differ only in how a lane finds its key
+//   row, so one kernel serves both. Every index is bounds-checked: a row
+//   outside [0, N) rejects the lane and is never read.
+// * ed25519_verify_full_compact replaces verify_full_kernel_compact
+//   (:370): wire u8[96, B] rows A, R, S, the message plane u8[MP, B]
+//   (sha512.py::stage_ragged_np, prefix_len 64) and int32[B] lengths. Each
+//   lane rebuilds R || A || M's SHA-512 blocks from the wire and the plane
+//   in registers (the padding of sha512.py::blocks_from_bytes, :202),
+//   compresses only its live blocks (sha512.cuh), reduces mod L exactly
+//   (sc25519.cuh) and enters verify_core.
+//
+// verify_core is compiled once, not inlined into each kernel: it holds
+// nearly all of a lane's work, so one call per lane costs nothing that
+// shows, and three inlined copies more than doubled the build time.
+//
+// Output: u8[B], 1 where encode([s]B + [h](-A)) equals R byte for byte
+// and A decompressed. The host ANDs it with its validity mask (s < L,
+// lengths, absent lanes), exactly as the reference does.
 //
 // What bounds it on this card: integer operations. A signature costs about
 // 2,200 field products and 1,500 squarings (127 x (2 doublings + 1
 // addition) in the loop, plus the table, the decompression and the
 // inversion), each 100 or 55 32x32->64 multiply-adds plus the carries:
 // about 0.96 M 32-bit integer instructions per lane (chip_smoke.py counts
-// them), against 129 bytes moved. The design keeps the field
-// elements in registers as ten uint32 limbs with uint64 column sums.
-// The TPU's one-hot table select (_select_cached, :197) becomes an indexed
-// read: verification handles public data only and needs no constant-time
+// them), against 100 to 129 bytes moved. SHA-512 of two blocks and the
+// reduction add under 2% to that. The design keeps the field elements in
+// registers as ten uint32 limbs with uint64 column sums. The TPU's one-hot
+// table select (_select_cached, :197) becomes an indexed read:
+// verification handles public data only and needs no constant-time
 // select. The 16 cached points (2,560 bytes per thread) are indexed by a
-// run-time digit and so live in local memory; that spill is the first thing
-// a faster version should remove (e.g. a table in shared memory, or a
-// warp cooperating on one signature).
+// run-time digit and so live in local memory; that spill is the first
+// thing a faster version should remove (e.g. a table in shared memory, or
+// a warp cooperating on one signature).
 //
 // Semantics (reference :33-42): A's y is taken mod p and not rejected; a
 // failed decompression rejects; -0 decodes as 0; R is compared raw, so a
@@ -33,6 +56,8 @@
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "sc25519.cuh"
+#include "sha512.cuh"
 
 // Constants in carried (here canonical) limbs; tests/test_torch_ed25519.py
 // recomputes each from its definition and checks these literals.
@@ -113,18 +138,12 @@ __device__ bool decompress(fe &x, const fe &y, uint32_t sign) {
   return ok_direct || ok_flip;
 }
 
-__global__ void __launch_bounds__(128)
-ed25519_verify_compact_kernel(const uint8_t *__restrict__ wire,
-                              uint8_t *__restrict__ out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  uint32_t aw[8], rw[8], sw[8], hw[8];
-  load_words(aw, wire, 0, B, b);
-  load_words(rw, wire, 32, B, b);
-  load_words(sw, wire, 64, B, b);
-  load_words(hw, wire, 96, B, b);
-
+// encode([s]B + [h](-A)) == R and A decompresses, from the little-endian
+// u32 words of A, R, s and h.
+__device__ __noinline__ bool verify_core(const uint32_t aw[8],
+                                         const uint32_t rw[8],
+                                         const uint32_t sw[8],
+                                         const uint32_t hw[8]) {
   fe d2;
   fe_const(d2, K_D2);
 
@@ -194,7 +213,131 @@ ed25519_verify_compact_kernel(const uint8_t *__restrict__ wire,
   bool same = true;
 #pragma unroll
   for (int j = 0; j < 8; ++j) same &= enc[j] == rw[j];
-  out[b] = (same && ok) ? 1 : 0;
+  return same && ok;
+}
+
+__global__ void __launch_bounds__(128)
+ed25519_verify_compact_kernel(const uint8_t *__restrict__ wire,
+                              uint8_t *__restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  uint32_t aw[8], rw[8], sw[8], hw[8];
+  load_words(aw, wire, 0, B, b);
+  load_words(rw, wire, 32, B, b);
+  load_words(sw, wire, 64, B, b);
+  load_words(hw, wire, 96, B, b);
+  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
+}
+
+// Lane b's key row (row b, or idx[b] when idx is given) as eight
+// little-endian words; false, with zero words, when the row is outside
+// [0, N).
+__device__ __forceinline__ bool load_key(uint32_t aw[8],
+                                         const uint8_t *__restrict__ table,
+                                         int N, const int32_t *__restrict__ idx,
+                                         int b) {
+  const int row = idx != nullptr ? idx[b] : b;
+  const bool have = row >= 0 && row < N;
+  const uint8_t *p = table + (size_t)(have ? row : 0) * 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    aw[j] = have ? ((uint32_t)p[4 * j] | ((uint32_t)p[4 * j + 1] << 8) |
+                    ((uint32_t)p[4 * j + 2] << 16) | ((uint32_t)p[4 * j + 3] << 24))
+                 : 0u;
+  }
+  return have;
+}
+
+// Byte pos (>= 64) of lane b's padded stream R || A || M || 0x80 || 0 ||
+// 128-bit big-endian bit length, as sha512.py::blocks_from_bytes lays it:
+// the length field wins, then the message, then the terminator.
+__device__ __forceinline__ uint64_t stream_byte(int pos, int tlen, int end,
+                                                uint64_t bit_len,
+                                                const uint8_t *__restrict__ msg,
+                                                int B, int b) {
+  if (pos >= end - 16) {
+    const int shift = (end - 1 - pos) * 8;
+    return shift < 64 ? (bit_len >> shift) & 0xFFu : 0u;
+  }
+  if (pos < tlen) return msg[(size_t)(pos - 64) * B + b];
+  return pos == tlen ? 0x80u : 0u;
+}
+
+// h = SHA-512(R || A || M) mod L for lane b, as eight little-endian
+// words. The message plane holds MP = 128 * max_blocks - 64 rows; mlen is
+// clamped to [0, MP] and the live block count to max_blocks, so no read
+// leaves the plane.
+__device__ __forceinline__ void challenge_words(uint32_t hw[8],
+                                                const uint32_t rw[8],
+                                                const uint32_t aw[8],
+                                                const uint8_t *__restrict__ msg,
+                                                int MP, int mlen, int B, int b) {
+  const int tlen = 64 + min(max(mlen, 0), MP);
+  const int n_live = min((tlen + 17 + 127) >> 7, (64 + MP) >> 7);
+  const int end = n_live * 128;
+  const uint64_t bit_len = (uint64_t)tlen * 8;
+  uint64_t st[8];
+  sha512_init(st);
+#pragma unroll 1
+  for (int blk = 0; blk < n_live; ++blk) {
+    uint64_t w[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      uint64_t v = 0;
+      if (blk == 0 && j < 8) {
+        // the 64-byte prefix R || A, big-endian words of the LE bytes
+        const uint32_t *src = j < 4 ? rw : aw;
+        const int q = 2 * (j & 3);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v = (v << 8) | ((src[q + (k >> 2)] >> (8 * (k & 3))) & 0xFFu);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          v = (v << 8) | stream_byte(blk * 128 + j * 8 + k, tlen, end, bit_len,
+                                     msg, B, b);
+      }
+      w[j] = v;
+    }
+    sha512_compress(st, w);
+  }
+  sc_reduce_digest(hw, st);
+}
+
+__global__ void __launch_bounds__(128)
+ed25519_verify_resident_kernel(const uint8_t *__restrict__ table, int N,
+                               const int32_t *__restrict__ idx,
+                               const uint8_t *__restrict__ rsh,
+                               uint8_t *__restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  uint32_t aw[8], rw[8], sw[8], hw[8];
+  if (!load_key(aw, table, N, idx, b)) {
+    out[b] = 0;
+    return;
+  }
+  load_words(rw, rsh, 0, B, b);
+  load_words(sw, rsh, 32, B, b);
+  load_words(hw, rsh, 64, B, b);
+  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(128)
+ed25519_verify_full_compact_kernel(const uint8_t *__restrict__ wire,
+                                   const uint8_t *__restrict__ msg, int MP,
+                                   const int32_t *__restrict__ mlen,
+                                   uint8_t *__restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  uint32_t aw[8], rw[8], sw[8], hw[8];
+  load_words(aw, wire, 0, B, b);
+  load_words(rw, wire, 32, B, b);
+  load_words(sw, wire, 64, B, b);
+  challenge_words(hw, rw, aw, msg, MP, mlen[b], B, b);
+  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
 }
 
 extern "C" int cbt_ed25519_verify_compact(const void *wire, void *out, int B,
@@ -203,5 +346,27 @@ extern "C" int cbt_ed25519_verify_compact(const void *wire, void *out, int B,
   const int blocks = (B + threads - 1) / threads;
   ed25519_verify_compact_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t *)wire, (uint8_t *)out, B);
+  return (int)cudaGetLastError();
+}
+
+static inline int grid_for(int B) { return (B + 127) / 128; }
+
+extern "C" int cbt_ed25519_verify_resident(const void *table, int N,
+                                           const void *idx, const void *rsh,
+                                           void *out, int B, void *stream) {
+  ed25519_verify_resident_kernel<<<grid_for(B), 128, 0, (cudaStream_t)stream>>>(
+      (const uint8_t *)table, N, (const int32_t *)idx, (const uint8_t *)rsh,
+      (uint8_t *)out, B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cbt_ed25519_verify_full_compact(const void *wire,
+                                               const void *msg, int MP,
+                                               const void *mlen, void *out,
+                                               int B, void *stream) {
+  ed25519_verify_full_compact_kernel<<<grid_for(B), 128, 0,
+                                       (cudaStream_t)stream>>>(
+      (const uint8_t *)wire, (const uint8_t *)msg, MP, (const int32_t *)mlen,
+      (uint8_t *)out, B);
   return (int)cudaGetLastError();
 }

@@ -19,25 +19,37 @@ Semantics (reference :33-42): s >= L is rejected on the host (the
 ``valid`` mask, ANDed with the kernel's verdict); A's y is taken mod p;
 a failed decompression rejects; -0 decodes as 0; R is compared as raw
 bytes, so a non-canonical R never matches.
+
+The steady-state routes (reference :605-660, :805-1040) verify with the
+same core: ``verify_kernel_resident`` against key rows resident on the
+device (lane order for a commit, gathered by row index for a flush),
+and ``verify_kernel_full_compact`` with h = SHA-512(R‖A‖M) mod L computed
+on the card. Each has a plain torch version beside it. The key-store
+routes hash on the host whatever ``CBFT_TPU_HASH`` says, as the
+reference's do; only ``verify_batch`` (keys shipped) reads it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from cometbft_tpu_torch.crypto.cuda import build, field as fe
+from cometbft_tpu_torch.crypto.cuda import build, field as fe, keystore, mesh, scalar, sha512
 from cometbft_tpu_torch.crypto.cuda.field import L, P
+from cometbft_tpu_torch.crypto.cuda.scalar import NUM_DIGITS, digits_msb_first
 
-NUM_DIGITS = 127  # 2-bit windows of a 253-bit scalar
 WIRE_ROWS = 128
+MAX_CHUNK = 8192  # per-curve default chunk cap; CBFT_TPU_MAX_CHUNK overrides
 
-# launches of the CUDA kernel (the plain version does not count)
-LAUNCHES = 0
+# launches of each CUDA kernel (the plain versions do not count)
+LAUNCHES = 0  # ed25519_verify_compact
+RESIDENT_LAUNCHES = 0  # ed25519_verify_resident
+FULL_LAUNCHES = 0  # ed25519_verify_full_compact
 
 
 # --- host packing (reference ed25519_batch.py:444-583) ----------------------
@@ -124,6 +136,69 @@ def prepare_batch_compact(
     h_arr = _challenge_scalars(pk_arr, sig_arr, msgs, valid)
     wire = pack_compact_rows(pk_arr, sig_arr[:, :32], sig_arr[:, 32:], h_arr)
     return wire, valid
+
+
+def prepare_batch_device_hash_compact(
+    pub_keys: Sequence[bytes],
+    msgs: Sequence[bytes],
+    sigs: Sequence[bytes],
+):
+    """→ (wire u8[96,B] rows 0:32 A, 32:64 R, 64:96 S; msg u8[MP,B];
+    mlen int32[B]; valid bool[B]): no hashing on the host, the card pads
+    and hashes R ‖ A ‖ M itself (reference :610)."""
+    pk_arr, sig_arr, valid = _parse_inputs(pub_keys, sigs)
+    wire = pack_compact_rows(pk_arr, sig_arr[:, :32], sig_arr[:, 32:])
+    msg, mlen = sha512.stage_ragged_np(msgs, prefix_len=64)
+    return wire, msg, mlen, valid
+
+
+def _parse_lane_sigs(msgs, sigs) -> Tuple[np.ndarray, np.ndarray]:
+    """→ (sig_arr u8[B,64], valid): msgs[i] or sigs[i] None marks an
+    absent lane; absent, wrong-length and s ≥ L lanes are zero and
+    invalid."""
+    n = len(msgs)
+    valid = np.ones(n, bool)
+    parts = []
+    for i in range(n):
+        s = sigs[i]
+        if s is None or msgs[i] is None or len(s) != 64:
+            valid[i] = False
+            parts.append(b"\x00" * 64)
+        else:
+            parts.append(bytes(s))
+    sig_arr = np.frombuffer(b"".join(parts), np.uint8).reshape(n, 64)
+    valid &= _s_below_l(sig_arr[:, 32:])
+    return sig_arr, valid
+
+
+def _prepare_rsh_compact(pk_arr: np.ndarray, msgs, sigs) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-chunk staging for the key-store routes (reference :959):
+    (rsh u8[96,B] rows 0:32 R, 32:64 S, 64:96 h, valid); pk_arr holds
+    each lane's key for the hash."""
+    sig_arr, valid = _parse_lane_sigs(msgs, sigs)
+    h_arr = _challenge_scalars(pk_arr, sig_arr, msgs, valid)
+    return pack_compact_rows(sig_arr[:, :32], sig_arr[:, 32:], h_arr), valid
+
+
+def hash_mode() -> str:
+    """CBFT_TPU_HASH: ``host`` or ``device`` pin where h is computed;
+    ``auto`` (the default) leaves it to ``hash_route``."""
+    mode = os.environ.get("CBFT_TPU_HASH", "auto")
+    if mode not in ("host", "device", "auto"):
+        raise ValueError(
+            f"unknown CBFT_TPU_HASH={mode!r}; choose from ['auto', 'device', 'host']"
+        )
+    return mode
+
+
+def hash_route(n: int) -> str:
+    """Where h = SHA-512(R ‖ A ‖ M) mod L runs for an n-lane batch: the
+    pin when set, else ``host``. The reference picks the device above a
+    crossover measured at warm-up and the host while it is unmeasured;
+    the port has no calibration yet (ROADMAP A.6), so ``auto`` is the
+    host. Either way the verification runs on the card."""
+    mode = hash_mode()
+    return "host" if mode == "auto" else mode
 
 
 # --- point layer (reference :119-213), extended coordinates, a = -1 --------
@@ -216,15 +291,6 @@ def unpack_fe(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(limbs, dim=0)
 
 
-def unpack_digits(words: torch.Tensor) -> torch.Tensor:
-    """int64[8,B] scalar words → int64[127,B] radix-4 digits, MSB first."""
-    digs = []
-    for d in range(NUM_DIGITS):
-        bit = 2 * (NUM_DIGITS - 1 - d)
-        digs.append((words[bit // 32] >> (bit % 32)) & 3)
-    return torch.stack(digs, dim=0)
-
-
 def encode(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Canonical affine (x, y) → int64[8,B] u32 words of the 32-byte
     encoding: y's 255 bits, x's parity at bit 255."""
@@ -262,13 +328,14 @@ def _base_points(device) -> List[Point]:
     return out
 
 
-def verify_compact_plain(wire: torch.Tensor) -> torch.Tensor:
-    """bool[B] from the compact wire u8[128,B]: encode([s]B + [h](−A)) == R
-    and A decompresses. The torch twin of the CUDA kernel."""
-    dev = wire.device
-    words = _words(wire)  # int64[32,B]
-    a_w, r_w, s_w, h_w = words[0:8], words[8:16], words[16:24], words[24:32]
-    batch = wire.shape[1]
+
+
+def _verify_words(a_w, r_w, s_w, h_w) -> torch.Tensor:
+    """bool[B]: encode([s]B + [h](−A)) == R and A decompresses, from
+    int64[8,B] little-endian u32 words of A, R, s and h. The torch twin
+    of ``verify_core`` in csrc/ed25519_verify.cu."""
+    dev = a_w.device
+    batch = a_w.shape[1]
     ay = unpack_fe(a_w)
     a_sign = (a_w[7] >> 31) & 1
     x, ok = decompress(ay, a_sign)
@@ -295,8 +362,8 @@ def verify_compact_plain(wire: torch.Tensor) -> torch.Tensor:
             entries.append(torch.stack(cache_point(pt), dim=0))  # [4,10,B]
     table = torch.stack(entries, dim=0)  # [16,4,10,B]
 
-    s_dig = unpack_digits(s_w)
-    h_dig = unpack_digits(h_w)
+    s_dig = digits_msb_first(s_w)
+    h_dig = digits_msb_first(h_w)
     lanes = torch.arange(batch, device=dev)
     acc: Point = s_pts[0]
     for i in range(NUM_DIGITS):
@@ -311,11 +378,101 @@ def verify_compact_plain(wire: torch.Tensor) -> torch.Tensor:
     return (enc == r_w).all(dim=0) & ok
 
 
+def verify_compact_plain(wire: torch.Tensor) -> torch.Tensor:
+    """bool[B] from the compact wire u8[128,B] (rows A, R, S, h). The
+    torch twin of ``ed25519_verify_compact``."""
+    words = _words(wire)  # int64[32,B]
+    return _verify_words(words[0:8], words[8:16], words[16:24], words[24:32])
+
+
+def _key_rows(table: torch.Tensor, idx: Optional[torch.Tensor], batch: int):
+    """Each lane's key row: (int64[8,B] words, bool[B] in range). Lane b
+    reads row idx[b], or row b when idx is None; a row outside the table
+    reads as zeros and is out of range."""
+    n = table.shape[0]
+    rows = torch.arange(batch, device=table.device) if idx is None else idx.to(torch.int64)
+    have = (rows >= 0) & (rows < n)
+    safe = torch.where(have, rows, 0)
+    keys = table[safe] if n > 0 else torch.zeros((batch, 32), dtype=torch.uint8, device=table.device)
+    keys = torch.where(have[:, None], keys, 0)
+    return _words(keys.T), have
+
+
+def verify_resident_plain(table: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
+    """bool[B] against resident keys: table u8[N,32], idx int32[B] or
+    None (lane order), rsh u8[96,B] rows R, S, h. The torch twin of
+    ``ed25519_verify_resident``; an index out of range rejects."""
+    a_w, have = _key_rows(table, idx, rsh.shape[1])
+    w = _words(rsh)  # int64[24,B]
+    return _verify_words(a_w, w[0:8], w[8:16], w[16:24]) & have
+
+
+def _challenge_words(r_rows: torch.Tensor, a_rows: torch.Tensor, msg: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
+    """h = SHA-512(R ‖ A ‖ M) mod L as int64[8,B] u32 words, from R and A
+    u8[32,B] and the staged message plane."""
+    max_blocks = (64 + msg.shape[0]) // 128
+    blocks, n_live = sha512.blocks_from_bytes(torch.cat([r_rows, a_rows], dim=0), msg, mlen, max_blocks)
+    digest = sha512.digest_bytes(sha512.sha512_blocks_plain(blocks, n_live))
+    return scalar.to_words(scalar.sc_reduce(scalar.digest_to_limbs(digest)))
+
+
+def verify_full_compact_plain(wire: torch.Tensor, msg: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
+    """bool[B] from wire u8[96,B] (rows A, R, S), the message plane
+    u8[MP,B] and mlen int32[B], h computed from them. The torch twin of
+    ``ed25519_verify_full_compact``."""
+    w = _words(wire)
+    h_w = _challenge_words(wire[32:64], wire[0:32], msg, mlen)
+    return _verify_words(w[0:8], w[8:16], w[16:24], h_w)
+
+
+# --- the kernels' wrappers ----------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "cbt_ed25519_verify_compact": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
-    ],
+    # wire, out, B, stream
+    "cbt_ed25519_verify_compact": [_P, _P, _I, _P],
+    # table, N, idx, rsh, out, B, stream
+    "cbt_ed25519_verify_resident": [_P, _I, _P, _P, _P, _I, _P],
+    # wire, msg, MP, mlen, out, B, stream
+    "cbt_ed25519_verify_full_compact": [_P, _P, _I, _P, _P, _I, _P],
 }
+
+
+def _lib():
+    return build.load("ed25519_verify", _SIGNATURES)
+
+
+def _require_rows(t: torch.Tensor, what: str, rows: int, batch: int, device) -> None:
+    build.require_cuda_tensor(t, what, torch.uint8, 2)
+    if t.shape[0] != rows or t.shape[1] != batch:
+        raise ValueError(f"{what}: expected [{rows}, {batch}], got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, the batch is on {device}")
+
+
+def _require_table(table: torch.Tensor, idx: Optional[torch.Tensor], batch: int, device) -> None:
+    build.require_cuda_tensor(table, "key table", torch.uint8, 2)
+    if table.shape[1] != 32 or table.device != device:
+        raise ValueError(f"key table: expected [N, 32] on {device}, got {tuple(table.shape)} on {table.device}")
+    if idx is not None:
+        build.require_cuda_tensor(idx, "key index", torch.int32, 1)
+        if idx.shape[0] != batch or idx.device != device:
+            raise ValueError(f"key index: expected [{batch}] on {device}, got {tuple(idx.shape)} on {idx.device}")
+
+
+def _require_msg(msg: torch.Tensor, mlen: torch.Tensor, batch: int, device) -> None:
+    build.require_cuda_tensor(msg, "message plane", torch.uint8, 2)
+    if msg.shape[1] != batch or (64 + msg.shape[0]) % 128 or msg.device != device:
+        raise ValueError(
+            f"message plane: expected [128k - 64, {batch}] on {device}, got {tuple(msg.shape)} on {msg.device}"
+        )
+    build.require_cuda_tensor(mlen, "message lengths", torch.int32, 1)
+    if mlen.shape[0] != batch or mlen.device != device:
+        raise ValueError(f"message lengths: expected [{batch}] on {device}, got {tuple(mlen.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
@@ -334,13 +491,61 @@ def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
     out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
     if batch == 0:
         return out.bool()
-    lib = build.load("ed25519_verify", _SIGNATURES)
-    rc = lib.cbt_ed25519_verify_compact(
+    rc = _lib().cbt_ed25519_verify_compact(
         wire.data_ptr(), out.data_ptr(), batch, build.stream_ptr(wire.device)
     )
     build.check(rc, "ed25519_verify_compact")
     LAUNCHES += 1
     return out.bool()
+
+
+def verify_kernel_resident(table: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
+    """bool[B] against resident keys (table u8[N,32]; idx int32[B], or
+    None for lane order; rsh u8[96,B]). On CUDA tensors this launches
+    ``ed25519_verify_resident``, or raises; CPU tensors run
+    ``verify_resident_plain``."""
+    global RESIDENT_LAUNCHES
+    if rsh.device.type == "cpu":
+        return verify_resident_plain(table, idx, rsh)
+    batch = rsh.shape[1]
+    _require_rows(rsh, "R‖S‖h rows", 96, batch, rsh.device)
+    _require_table(table, idx, batch, rsh.device)
+    out = torch.empty(batch, dtype=torch.uint8, device=rsh.device)
+    if batch == 0:
+        return out.bool()
+    rc = _lib().cbt_ed25519_verify_resident(
+        table.data_ptr(), table.shape[0], _ptr(idx), rsh.data_ptr(), out.data_ptr(),
+        batch, build.stream_ptr(rsh.device),
+    )
+    build.check(rc, "ed25519_verify_resident")
+    RESIDENT_LAUNCHES += 1
+    return out.bool()
+
+
+def verify_kernel_full_compact(wire: torch.Tensor, msg: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
+    """bool[B] with h computed on the card (wire u8[96,B], msg u8[MP,B],
+    mlen int32[B]). On CUDA tensors this launches
+    ``ed25519_verify_full_compact``, or raises; CPU tensors run
+    ``verify_full_compact_plain``."""
+    global FULL_LAUNCHES
+    if wire.device.type == "cpu":
+        return verify_full_compact_plain(wire, msg, mlen)
+    batch = wire.shape[1]
+    _require_rows(wire, "A‖R‖S rows", 96, batch, wire.device)
+    _require_msg(msg, mlen, batch, wire.device)
+    out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
+    if batch == 0:
+        return out.bool()
+    rc = _lib().cbt_ed25519_verify_full_compact(
+        wire.data_ptr(), msg.data_ptr(), msg.shape[0], mlen.data_ptr(), out.data_ptr(),
+        batch, build.stream_ptr(wire.device),
+    )
+    build.check(rc, "ed25519_verify_full_compact")
+    FULL_LAUNCHES += 1
+    return out.bool()
+
+
+# --- entry points -----------------------------------------------------------
 
 
 def verify_batch(
@@ -349,11 +554,81 @@ def verify_batch(
     sigs: Sequence[bytes],
     device="cuda",
 ) -> List[bool]:
-    """Per-signature verdicts: pack on the host, verify on ``device``, AND
-    with the packing's validity mask."""
-    if not pub_keys:
+    """Per-signature verdicts on ``device``, the keys shipped with each
+    lane (reference :731): ``hash_route`` picks the host-hash compact wire
+    or the device-hash wire, and ``mesh.dispatch_batch`` runs the batch
+    in chunks, packing chunk i+1 while the card verifies chunk i. The
+    result is ANDed with the packing's validity mask."""
+    n = len(pub_keys)
+    if n == 0:
         return []
-    wire, valid = prepare_batch_compact(pub_keys, msgs, sigs)
-    wire_t = torch.from_numpy(wire).to(device)
-    ok = verify_kernel_compact(wire_t).cpu().numpy()
-    return [bool(v) for v in ok & valid]
+    if hash_route(n) == "device":
+        prepare, kernel = prepare_batch_device_hash_compact, verify_kernel_full_compact
+    else:
+        prepare, kernel = prepare_batch_compact, verify_kernel_compact
+    valid_full = np.ones(n, bool)
+
+    def chunk(start: int, end: int):
+        *packed, valid = prepare(pub_keys[start:end], msgs[start:end], sigs[start:end])
+        valid_full[start:end] = valid
+        return packed
+
+    out = mesh.dispatch_batch(kernel, chunk, n, MAX_CHUNK, device)
+    return [bool(v) for v in out & valid_full]
+
+
+def verify_keyed(
+    table: torch.Tensor,
+    idx: Optional[np.ndarray],
+    pk_arr: np.ndarray,
+    msgs: Sequence[Optional[bytes]],
+    sigs: Sequence[Optional[bytes]],
+    device,
+) -> np.ndarray:
+    """bool[n] against keys resident in ``table`` on ``device``: lane i
+    reads row idx[i], or row i when idx is None (the resident commit).
+    pk_arr u8[n,32] holds the same keys on the host, where h is computed
+    (reference :959, whatever ``CBFT_TPU_HASH`` says). Chunked through
+    ``mesh.dispatch_batch``."""
+    n = len(msgs)
+    valid_full = np.ones(n, bool)
+
+    def chunk(start: int, end: int):
+        lead = [table[start:end], None] if idx is None else [table, idx[start:end]]
+        rsh, valid = _prepare_rsh_compact(pk_arr[start:end], msgs[start:end], sigs[start:end])
+        valid_full[start:end] = valid
+        return lead + [rsh]
+
+    return mesh.dispatch_batch(verify_kernel_resident, chunk, n, MAX_CHUNK, device) & valid_full
+
+
+def _build_resident(pub_keys: Sequence[bytes], device) -> keystore.KeyStoreEntry:
+    """A key-store entry for a validator set: its keys as u8[n,32] rows
+    copied to ``device`` once (reference :867)."""
+    pk_arr, _ = keystore.key_rows(pub_keys)
+    table = torch.from_numpy(pk_arr).to(device)
+    return keystore.new_entry(pub_keys, table, device)
+
+
+def verify_valset_resident(
+    valset_id: bytes,
+    pub_keys: Sequence[bytes],
+    msgs: Sequence[Optional[bytes]],
+    sigs: Sequence[Optional[bytes]],
+    device="cuda",
+) -> List[bool]:
+    """Full-lane commit verification against a resident validator set
+    (reference :980). pub_keys: every key of the set, in set order;
+    msgs/sigs: one entry per validator, None for an absent lane (False
+    in the result). valset_id must be a collision-resistant digest of the
+    ordered keys; the resident rows are trusted to match it. A malformed
+    key rejects its lane."""
+    n = len(pub_keys)
+    if n == 0:
+        return []
+    if len(msgs) != n or len(sigs) != n:
+        raise ValueError("msgs/sigs must have one entry per validator")
+    store = keystore.default_store()
+    entry = store.get(valset_id, pub_keys, lambda pks: _build_resident(pks, device), device)
+    out = verify_keyed(entry.table_dev, None, entry.pk_arr, msgs, sigs, device)
+    return [bool(v) for v in out & entry.pk_ok]

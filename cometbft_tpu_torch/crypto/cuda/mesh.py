@@ -1,0 +1,133 @@
+"""Chunked dispatch of a verify kernel on one device.
+
+Reference: cometbft_tpu/crypto/tpu/mesh.py — the cancel scope (:53-76),
+the chunk cap (:225-289) and ``dispatch_batch`` (:396), for one device.
+The reference pads every chunk to a power of two, which exists for XLA's
+shape cache; a CUDA kernel takes any batch, so the port does not pad.
+
+``dispatch_batch`` runs a batch as chunks of at most ``chunk_cap`` lanes.
+The caller's ``packed(start, end)`` builds one chunk's host arrays (the
+SHA-512 hashing and byte packing); each is copied to the device and the
+chunk's kernel is launched on the current stream. A launch does not wait
+for the kernel, so the host packs chunk i+1 while the card verifies
+chunk i; the masks are read back together after the last launch. A set
+cancel event raises ``DispatchCancelled`` at the next chunk edge.
+
+The reference's side copy stream, pinned staging and pipeline and
+prefetch depths are left out: at a blocksync window the host's packing
+takes about 50 times the kernel's time, and the plain loop measured the
+same as the pipelined one on the card (PERF.md). Still to port (ROADMAP
+A.4, A.6): the OOM shrink ladder under ``chunk_cap``, the memory guard,
+topology routes and telemetry spans.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+# --- cancellable dispatch (reference :53-76) --------------------------------
+
+_cancel_local = threading.local()
+
+
+class DispatchCancelled(RuntimeError):
+    """The dispatch's cancel event fired."""
+
+
+def current_cancel_event() -> Optional[threading.Event]:
+    """The cancel event installed on this thread, if any."""
+    return getattr(_cancel_local, "event", None)
+
+
+class cancel_scope:
+    """Install ``event`` as this thread's dispatch cancel event;
+    ``dispatch_batch`` checks it at every chunk edge. Nests."""
+
+    def __init__(self, event: threading.Event):
+        self._event = event
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_cancel_local, "event", None)
+        _cancel_local.event = self._event
+        return self._event
+
+    def __exit__(self, *exc_info):
+        _cancel_local.event = self._prev
+        return False
+
+
+# --- chunk cap (reference :225-289) -----------------------------------------
+
+_configured_cap: Optional[int] = None
+
+
+def _positive_int(value, what: str) -> int:
+    try:
+        n = int(value)
+    except (TypeError, ValueError):
+        raise ValueError(f"{what}={value!r} is not an integer") from None
+    if n < 1:
+        raise ValueError(f"{what}={n} must be >= 1")
+    return n
+
+
+def configure_chunk_cap(cap: Optional[int]) -> None:
+    """Install a node-wide chunk cap (None drops it). An explicitly set
+    CBFT_TPU_MAX_CHUNK still wins."""
+    global _configured_cap
+    _configured_cap = None if cap is None else _positive_int(cap, "max_chunk")
+
+
+def resolve_chunk_cap(default: int) -> int:
+    """CBFT_TPU_MAX_CHUNK (validated) beats the configured cap beats the
+    caller's per-curve default."""
+    raw = os.environ.get("CBFT_TPU_MAX_CHUNK")
+    if raw is not None:
+        return _positive_int(raw, "CBFT_TPU_MAX_CHUNK")
+    return default if _configured_cap is None else _configured_cap
+
+
+def chunk_cap(default: int) -> int:
+    """The cap a dispatch uses now: the resolved cap (the reference lowers
+    it here per OOM shrink level, not ported yet)."""
+    return resolve_chunk_cap(default)
+
+
+# --- the chunk loop (reference :396) ----------------------------------------
+
+
+def dispatch_batch(
+    kernel: Callable[..., torch.Tensor],
+    packed: Callable[[int, int], Sequence],
+    n: int,
+    max_chunk: int,
+    device,
+) -> np.ndarray:
+    """bool[n]: ``kernel(*chunk)`` over chunks of at most
+    ``chunk_cap(max_chunk)`` lanes, where ``packed(start, end)`` returns a
+    chunk's arguments: numpy arrays (copied to ``device``), tensors
+    already on ``device``, or None (passed as is). The kernel returns a
+    bool[end - start] tensor."""
+    device = torch.device(device)
+    if n == 0:
+        return np.zeros(0, bool)
+    cap = chunk_cap(max_chunk)
+    cancel = current_cancel_event()
+    masks: List[torch.Tensor] = []
+    for start in range(0, n, cap):
+        if cancel is not None and cancel.is_set():
+            raise DispatchCancelled(
+                f"dispatch cancelled before chunk {start // cap} (lanes [{start}:{n}] undone)"
+            )
+        args = [
+            torch.from_numpy(np.ascontiguousarray(a)).to(device) if isinstance(a, np.ndarray) else a
+            for a in packed(start, min(start + cap, n))
+        ]
+        masks.append(kernel(*args))
+    return torch.cat(masks).cpu().numpy()

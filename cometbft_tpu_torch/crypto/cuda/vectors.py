@@ -86,3 +86,57 @@ def mixed_batch(n: int = 33, seed: int = 3) -> List[Case]:
             label = "flipped"
         out.append((label, k.pub_key().bytes(), m, s))
     return out
+
+
+def _torsion_point() -> purepy.Point:
+    """A point of order 8: [L]P for the first y (counting up from 2) on
+    the curve whose torsion component has order 8."""
+    y = 2
+    while True:
+        x = purepy._recover_x(y, 0)
+        if x is not None:
+            t = purepy.pt_mul(purepy.L, (x, y, 1, x * y % purepy.P))
+            if purepy.pt_encode(purepy.pt_mul(4, t)) != purepy.pt_encode(purepy.IDENT):
+                return t
+        y += 1
+
+
+def _torsioned_signature(a: int, msg_base: bytes, want_zero: bool) -> Case:
+    """A key A = [a]B + T with T of order 8, and a signature of the form
+    every signer makes (R = [r]B, S = r + h·a mod L). It verifies
+    cofactorlessly exactly when [h]T is the identity, i.e. when h ≡ 0
+    (mod 8). L ≡ 5 (mod 8), so h and h + L never both pass: the verdict
+    depends on h being reduced exactly. The message is the first of
+    ``msg_base ‖ counter`` whose h mod 8 is (want_zero ? 0 : not 0)."""
+    pub_pt = purepy.pt_add(purepy.pt_mul(a, purepy.B), _torsion_point())
+    pub = purepy.pt_encode(pub_pt)
+    r = 0x1234567 + a
+    r_enc = purepy.pt_encode(purepy.pt_mul(r, purepy.B))
+    counter = 0
+    while True:
+        msg = msg_base + counter.to_bytes(2, "little")
+        h = purepy.sha512_mod_l(r_enc, pub, msg)
+        if (h % 8 == 0) == want_zero:
+            s = (r + h * a) % purepy.L
+            label = "torsioned_h0" if want_zero else "torsioned_h_nonzero"
+            return (label, pub, msg, r_enc + s.to_bytes(32, "little"))
+        counter += 1
+
+
+def device_hash_cases(seed: int = 11) -> List[Case]:
+    """Cases for the device-hash route: messages of 47/48 and 175/176
+    bytes (R ‖ A ‖ M of 111/112 and 239/240 bytes straddle SHA-512's one-
+    and two-block edges: 111 + 17 = 128), an empty message, a corrupted
+    one at each edge, and torsioned keys whose verdict depends on h mod L
+    being exact."""
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+    for i, n in enumerate((0, 47, 48, 175, 176)):
+        k = ed.gen_priv_key_from_secret(b"dh-edge-%d" % i)
+        m = rng.bytes(n)
+        s = k.sign(m)
+        out.append((f"valid_len_{n}", k.pub_key().bytes(), m, s))
+        out.append((f"corrupt_len_{n}", k.pub_key().bytes(), m, _flip(s, 33, 0x02)))
+    out.append(_torsioned_signature(0x1F2E3D4C, b"torsion-", True))
+    out.append(_torsioned_signature(0x5A6B7C8D, b"torsion-", False))
+    return out

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from cometbft_tpu_torch.crypto import batch as cryptobatch
+from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import merkle
 from cometbft_tpu_torch.libs import protoio
 from cometbft_tpu_torch.types.block import BlockID, Commit
@@ -212,10 +213,22 @@ class ValidatorSet:
     # -- commit verification through the batch boundary --------------------
 
     def _verify_lanes(self, lane_msgs, lane_sigs, entries, backend):
-        """Batch-verify the present lanes through the add()/verify()
-        protocol; returns one bool per entry (entry order)."""
+        """Batch-verify the present lanes; returns one bool per entry
+        (entry order). When every key is Ed25519 and the backend takes
+        the resident route (``"gpu"``), the whole set is verified against
+        keys that stay on the card across heights
+        (``crypto.batch.verify_commit_valset``); otherwise through the
+        add()/verify() protocol. The verdicts are the same either way."""
         if not entries:
             return []
+        if cryptobatch.resident_commit_eligible(len(entries), backend) and all(
+            isinstance(v.pub_key, ed.PubKeyEd25519) for v in self.validators
+        ):
+            full = cryptobatch.verify_commit_valset(
+                [v.pub_key.bytes() for v in self.validators], lane_msgs, lane_sigs, backend
+            )
+            if full is not None:
+                return [bool(full[e[0]]) for e in entries]
         bv = cryptobatch.new_batch_verifier(backend)
         for e in entries:
             idx = e[0]

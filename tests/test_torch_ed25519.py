@@ -27,7 +27,7 @@ from cometbft_tpu.crypto import ed25519 as ref_ed
 from cometbft_tpu.crypto.tpu import ed25519_batch as ref_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
-from cometbft_tpu_torch.crypto.cuda import ed25519_batch, field as fe, vectors
+from cometbft_tpu_torch.crypto.cuda import ed25519_batch, field as fe, scalar, vectors
 
 torch.set_num_threads(1)
 
@@ -69,7 +69,7 @@ def check_wire_unpack():
     raw = rng.integers(0, 256, size=(9, 32)).astype(np.uint8)
     words = ed25519_batch._words(torch.from_numpy(np.ascontiguousarray(raw.T)))
     limbs = ed25519_batch.unpack_fe(words)
-    digits = ed25519_batch.unpack_digits(words)
+    digits = scalar.digits_msb_first(words)
     bits = np.unpackbits(raw, axis=-1, bitorder="little")
     want_digits = (bits[:, 0:254:2] + 2 * bits[:, 1:254:2])[:, ::-1].T
     assert (digits.numpy() == want_digits).all()
