@@ -20,6 +20,9 @@ goes wrong:
              at message lengths 0, 55, 56, 64, 65 and 200 in fixed and
              ragged form (and against hashlib); Merkle roots for n in
              {1, 2, 3, 5, 180, 4097} (and against the host tree);
+             secp256k1_verify on the secp256k1 contract's cases, 40 mixed
+             lanes (and against the CPU verifier) and the wire-level
+             r + n and point-at-infinity lanes;
 3. main    — a 180-validator set (the Cosmos Hub's active set) with seeded
              keys and powers and a commit that all of them sign, driven
              through the entry points a node calls, path by path, each
@@ -48,11 +51,29 @@ goes wrong:
                              16 signatures corrupted) flushed with the key
                              store empty runs as two pipelined 8,192-lane
                              chunks and gives the expected mask;
+             and the same for a second 180-validator set whose keys are
+             secp256k1 (signed in pure Python):
+             secp commit   — verify_commit* under "gpu" and "cpu" agree as
+                             above, through add()/verify() (no key-store
+                             upload); ValidatorSet.hash on the card equals
+                             the host tree;
+             mixed flush   — the 180 Ed25519 precommits (the set resident:
+                             indexed) and the 180 secp256k1 precommits,
+                             interleaved, one of each corrupted, in one
+                             new_batch_verifier("gpu") flush == "cpu";
+             secp window   — 16,384 secp256k1 lanes (16 corrupted) in four
+                             4,096-lane chunks give the expected mask;
+             the indexed flush also checks that a
+             GPUBatchVerifier(device="cuda:0") finds the set uploaded
+             under "cuda" (no second upload);
 4. times   — host wall medians of verify_commit (resident hit, the
              keyed compact route, "cpu"), the flushes and
              ValidatorSet.hash; signatures per second of the window in two
              chunks against one launch; the device's idle share over ten
-             resident verify_commit calls (torch.profiler); CUDA-event
+             resident verify_commit calls (torch.profiler); the secp256k1
+             set's verify_commit on "gpu" and "cpu" in turns, its packing
+             alone, the secp window's signatures per second and the idle
+             share over ten of its verify_commit calls; CUDA-event
              medians of each kernel
              beside its plain version and its bound (the larger of bytes
              over 3.35 TB/s and 32-bit integer operations over the card's
@@ -83,7 +104,17 @@ from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import merkle as host_merkle
 from cometbft_tpu_torch.crypto import purepy
-from cometbft_tpu_torch.crypto.cuda import build, ed25519_batch, keystore, merkle, mesh, sha256, vectors
+from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto.cuda import (
+    build,
+    ed25519_batch,
+    keystore,
+    merkle,
+    mesh,
+    secp256k1_batch,
+    sha256,
+    vectors,
+)
 from cometbft_tpu_torch.proto.gogo import Timestamp
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -124,6 +155,18 @@ SHA512_BLOCK_OPS = 80 * 40 + 64 * 26 + 16 + 128 * 6
 # sc_reduce: 24 limb reads of 8, 14 folds of 6 64-bit multiply-adds (6
 # each), 46 carries of 8, 12 limbs packed at 6.
 SC_REDUCE_OPS = 24 * 8 + 14 * 6 * 6 + 46 * 8 + 12 * 6
+# GF(2^256 - 2^32 - 977) in ten 26-bit limbs (fe256k1.cuh), 64-bit operations
+# counted as two: fe_reduce carries 19 columns into digits (5 each), folds
+# digits 10..19 down (two multiply-adds each), and runs two carry passes;
+# a uint32 carry pass is 9 steps of shift, add and mask plus the fold;
+# fe_canonical is two such passes and a 10-limb borrow chain with select.
+K1_REDUCE_OPS = 19 * 5 + 10 * 2 * 2 + 2 * (9 * 5 + 10)
+K1_MUL_OPS = 2 * 100 + K1_REDUCE_OPS  # 100 products
+K1_SQ_OPS = 2 * 55 + 10 + K1_REDUCE_OPS  # 55 products, 10 doublings
+K1_CARRY32_OPS = 9 * 3 + 8
+K1_ADD_OPS = 10 + K1_CARRY32_OPS  # fe_add, fe_mul_small
+K1_SUB_OPS = 20 + K1_CARRY32_OPS
+K1_CANONICAL_OPS = 2 * K1_CARRY32_OPS + 10 * 4 + 10
 
 ED_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_verify.cu"
 KERNELS = {
@@ -137,6 +180,10 @@ KERNELS = {
     "merkle_level": (
         "cometbft_tpu_torch/crypto/cuda/csrc/merkle.cu",
         "cometbft_tpu/crypto/tpu/merkle.py:103",
+    ),
+    "secp256k1_verify": (
+        "cometbft_tpu_torch/crypto/cuda/csrc/secp256k1_verify.cu",
+        "cometbft_tpu/crypto/tpu/secp256k1_batch.py:179",
     ),
 }
 
@@ -163,6 +210,7 @@ def reset_counts() -> None:
     ed25519_batch.FULL_LAUNCHES = 0
     sha256.LAUNCHES = 0
     merkle.LAUNCHES = 0
+    secp256k1_batch.LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -172,6 +220,7 @@ def counts() -> dict:
         "ed25519_verify_full_compact": ed25519_batch.FULL_LAUNCHES,
         "sha256_blocks": sha256.LAUNCHES,
         "merkle_level": merkle.LAUNCHES,
+        "secp256k1_verify": secp256k1_batch.LAUNCHES,
     }
 
 
@@ -227,6 +276,22 @@ def ed25519_ops_per_lane() -> int:
     canonical = 5 + 2
     digits = 127 * 8
     return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS + digits
+
+
+def secp256k1_ops_per_lane() -> int:
+    """32-bit integer instructions that one lane of secp256k1_verify needs
+    at least, whatever its data (no early exit), from the field operations
+    it runs (secp256k1_verify.cu, fe256k1.cuh)."""
+    dbl = {"sq": 2, "mul": 6, "small": 1, "add": 8, "sub": 1}  # pt_dbl
+    add = {"sq": 0, "mul": 12, "small": 2, "add": 14, "sub": 5}  # pt_add
+    decompress = {"sq": 1 + 253 + 1, "mul": 1 + 13, "small": 0, "add": 1, "sub": 1, "canonical": 3}
+    final = {"mul": 2, "add": 1, "canonical": 5}
+    n_dbl, n_add = 1 + 2 * 128, 1 + 9 + 128  # table, then the loop
+    cost = {"sq": K1_SQ_OPS, "mul": K1_MUL_OPS, "small": K1_ADD_OPS, "add": K1_ADD_OPS,
+            "sub": K1_SUB_OPS, "canonical": K1_CANONICAL_OPS}
+    total = sum(cost[k] * (n_dbl * dbl.get(k, 0) + n_add * add.get(k, 0)
+                           + decompress.get(k, 0) + final.get(k, 0)) for k in cost)
+    return total + 128 * 8  # the digit reads
 
 
 def live_sha512_blocks(mlen: np.ndarray) -> int:
@@ -305,6 +370,34 @@ def check_merkle(dev) -> int:
     return err
 
 
+def secp_cpu(pks, msgs, sigs):
+    """The CPU verifier's verdicts; a key that is not 33 bytes rejects."""
+    return [len(p) == 33 and secp.PubKeySecp256k1(p).verify_signature(m, s) for p, m, s in zip(pks, msgs, sigs)]
+
+
+def check_secp(dev) -> int:
+    """secp256k1_verify == its plain version on the card == the CPU
+    verifier on the contract's cases and 40 mixed lanes, and the
+    wire-level r + n and infinity lanes give their verdicts."""
+    cases, wire_cases = vectors.secp256k1_cases(SEED)
+    cases += vectors.secp256k1_mixed(40, SEED)
+    pks, msgs, sigs = [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
+    wire, flags, valid = secp256k1_batch.prepare_batch(pks, msgs, sigs)
+    w_wire, w_flags, w_want = vectors.secp256k1_wire(wire_cases)
+    w_t, f_t = to_dev(dev, np.concatenate([wire, w_wire], axis=1), np.concatenate([flags, w_flags]))
+    got = secp256k1_batch.verify_kernel(w_t, f_t)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, secp256k1_batch.verify_plain(w_t, f_t))
+    check(err == 0, "secp256k1_verify disagrees with its plain version")
+    got = got.cpu().numpy()
+    cpu = secp_cpu(pks, msgs, sigs)
+    check((got[:len(cases)] & valid).tolist() == cpu, "secp256k1_verify disagrees with the CPU verifier")
+    check(got[len(cases):].tolist() == w_want, f"secp256k1_verify wire-level lanes: {got[len(cases):].tolist()} != {w_want}")
+    print(f"kernels: secp256k1_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, "
+          f"wire-level r + n and infinity lanes {w_want}, max_abs_err {err}")
+    return err
+
+
 def to_dev(dev, *arrays):
     return [torch.from_numpy(np.array(a, order="C")).to(dev) for a in arrays]
 
@@ -370,9 +463,11 @@ def check_full_compact(dev) -> int:
 # --- phase 3: the main path --------------------------------------------------
 
 
-def make_valset_and_commit():
+def make_valset_and_commit(curve=ed, tag=b"cosmoshub-val-%d"):
+    """180 validators with keys from ``curve`` (seeded), seeded powers, and
+    a commit that every one of them signs."""
     rng = np.random.default_rng(SEED)
-    privs = [ed.gen_priv_key_from_secret(b"cosmoshub-val-%d" % i) for i in range(N_VALIDATORS)]
+    privs = [curve.gen_priv_key_from_secret(tag % i) for i in range(N_VALIDATORS)]
     powers = rng.integers(1_000, 5_000_000, N_VALIDATORS)
     vals = ValidatorSet([Validator.new(k.pub_key(), int(p)) for k, p in zip(privs, powers)])
     by_addr = {k.pub_key().address(): k for k in privs}
@@ -517,6 +612,16 @@ def indexed_flush_path(vals, commit, per_call):
     check(store_stats()["indexed_dispatches"] == base + 1, "the flush did not take the indexed route")
     per_call["indexed flush"] = {k: v for k, v in counts().items() if v}
     print(f"main: indexed flush of {len(items)} precommits == cpu, through the resident key table")
+    # the set went up under "cuda"; a verifier built for "cuda:0" finds it
+    st = store_stats()
+    bv = cryptobatch.GPUBatchVerifier(device="cuda:0")
+    for pk, msg, sig in items:
+        bv.add(pk, msg, sig)
+    check(bv.verify() == (True, [True] * len(items)), "the cuda:0 flush != cpu")
+    st2 = store_stats()
+    check(st2["uploads"] == st["uploads"] and st2["indexed_dispatches"] == st["indexed_dispatches"] + 1,
+          "a cuda:0 flush did not find the set uploaded under cuda")
+    print("main: a GPUBatchVerifier(device=\"cuda:0\") flush takes the indexed route with no second upload")
 
 
 def device_hash_path(vals, block_id, commit, per_call):
@@ -579,23 +684,102 @@ def window_path(items, want, per_call):
     print(f"main: window of {BIG_BATCH} lanes == expected mask ({want.count(False)} rejected) in {launched} chunks")
 
 
+def secp_commit_path(svals, sblock_id, scommit, per_call):
+    """verify_commit* of the secp256k1 set on the card against "cpu": the
+    add()/verify() protocol, no key-store upload; ValidatorSet.hash."""
+    base = store_stats()
+    results = {}
+    for label, c in variants(svals, scommit).items():
+        for name, fn in commit_calls(svals, sblock_id, c).items():
+            results[(label, name)] = compare_on_gpu_and_cpu(f"secp {label}", name, fn, per_call)
+    check(results[("signed", "verify_commit")] == ("ok",), "the signed secp256k1 commit did not verify")
+    check(results[("corrupted", "verify_commit")][0] == "ValueError", "the corrupted secp256k1 commit verified")
+    check(results[("under_2/3", "verify_commit")][0] == "ErrNotEnoughVotingPowerSigned",
+          "the under-2/3 secp256k1 commit verified")
+    check(store_stats()["uploads"] == base["uploads"], "a secp256k1 set took the resident route")
+    before = counts()
+    dev_hash = svals.hash()
+    per_call["secp ValidatorSet.hash"] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(dev_hash == svals.hash(device="cpu"), "secp256k1 ValidatorSet.hash on the card != host tree")
+    print(f"main: secp256k1 set: {len(results)} verify_commit* calls == cpu with no upload; "
+          f"ValidatorSet.hash on the card == host tree ({dev_hash.hex()[:16]}...)")
+
+
+def mixed_flush_path(vals, block_id, commit, svals, scommit, per_call):
+    """The 180 Ed25519 and 180 secp256k1 precommits, interleaved and one of
+    each corrupted, in one new_batch_verifier("gpu") flush while the
+    Ed25519 set is resident: verdicts in input order, equal to "cpu"."""
+    vals.verify_commit(CHAIN_ID, block_id, commit.height, commit)  # the node's commit check: resident
+    ed_items, secp_items = precommits(vals, commit), precommits(svals, scommit)
+    for batch, lane in ((ed_items, 5), (secp_items, 7)):
+        pk, msg, sig = batch[lane]
+        batch[lane] = (pk, msg, sig[:9] + bytes([sig[9] ^ 0x40]) + sig[10:])
+    items = [it for pair in zip(ed_items, secp_items) for it in pair]
+    base = store_stats()
+    got = flush(items, None)
+    after = store_stats()
+    want = flush(items, "cpu")
+    check(got == want and want[1].count(False) == 2 and not want[1][10] and not want[1][15],
+          "the mixed flush != cpu")
+    check(all(type(v) is bool for v in got[1]), "the mixed flush's verdicts are not Python bools")
+    check(after["indexed_dispatches"] == base["indexed_dispatches"] + 1 and after["uploads"] == base["uploads"],
+          "the mixed flush's Ed25519 lanes did not take the indexed route")
+    per_call["mixed flush"] = {k: v for k, v in counts().items() if v}
+    print(f"main: mixed flush of {len(ed_items)} Ed25519 (indexed) and {len(secp_items)} secp256k1 "
+          f"precommits, interleaved == cpu, in order")
+
+
+def secp_window_items(svals, scommit):
+    """BIG_BATCH secp256k1 lanes tiling the commit's precommits, 16 with a
+    corrupted signature, and the expected mask."""
+    base = precommits(svals, scommit)
+    items = [base[i % len(base)] for i in range(BIG_BATCH)]
+    want = [True] * BIG_BATCH
+    for lane in range(0, BIG_BATCH, BIG_BATCH // 16):
+        pk, msg, sig = items[lane]
+        byte = lane % 64
+        items[lane] = (pk, msg, sig[:byte] + bytes([sig[byte] ^ 0x08]) + sig[byte + 1:])
+        want[lane] = pk.verify_signature(msg, items[lane][2])
+        check(not want[lane], f"secp window lane {lane}: the corrupted signature verified on cpu")
+    return items, want
+
+
+def secp_window_path(items, want, per_call):
+    """The secp256k1 blocksync window: 4,096-lane chunks (the reference's
+    _MAX_CHUNK)."""
+    ok, mask = flush(items, None)
+    check(mask == want and not ok, "secp window mask != expected")
+    launched = counts()["secp256k1_verify"]
+    chunks = -(-BIG_BATCH // mesh.chunk_cap(secp256k1_batch.MAX_CHUNK))
+    check(launched == chunks == 4, f"secp window ran as {launched} launches, want 4 chunks")
+    per_call["secp window"] = {k: v for k, v in counts().items() if v}
+    print(f"main: secp window of {BIG_BATCH} lanes == expected mask ({want.count(False)} rejected) in {launched} chunks")
+
+
 PATHS = {  # path -> the kernels it must launch
     "commit": ("ed25519_verify_resident", "sha256_blocks", "merkle_level"),
     "indexed flush": ("ed25519_verify_resident",),
     "device hash": ("ed25519_verify_resident", "ed25519_verify_full_compact"),
     "window": ("ed25519_verify_compact",),
+    "secp commit": ("secp256k1_verify", "sha256_blocks", "merkle_level"),
+    "mixed flush": ("secp256k1_verify", "ed25519_verify_resident"),
+    "secp window": ("secp256k1_verify",),
 }
 
 
-def run_main_path(vals, block_id, commit):
+def run_main_path(vals, block_id, commit, svals, sblock_id, scommit):
     """Each path with the counts set to 0 just before it and read just
     after; returns (launches summed over the paths, per call)."""
     items, want = window_items(vals, commit)
+    s_items, s_want = secp_window_items(svals, scommit)
     steps = {
         "commit": lambda pc: commit_path(vals, block_id, commit, pc),
         "indexed flush": lambda pc: indexed_flush_path(vals, commit, pc),
         "device hash": lambda pc: device_hash_path(vals, block_id, commit, pc),
         "window": lambda pc: window_path(items, want, pc),
+        "secp commit": lambda pc: secp_commit_path(svals, sblock_id, scommit, pc),
+        "mixed flush": lambda pc: mixed_flush_path(vals, block_id, commit, svals, scommit, pc),
+        "secp window": lambda pc: secp_window_path(s_items, s_want, pc),
     }
     total = {k: 0 for k in counts()}
     per_call = {}
@@ -702,6 +886,34 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
     print(f"time: merkle_level tree of {len(leaves)}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
     out.update(time_new_kernels(vals, commit, card, errs, int_rate))
     return out
+
+
+def time_secp_kernel(svals, scommit, card: str, errs: dict) -> dict:
+    """secp256k1_verify at B=180 (one commit) and 16,384 (the window), equal
+    to its plain version, beside its bound."""
+    dev = torch.device("cuda")
+    int_rate = int32_ops_per_s()
+    items = precommits(svals, scommit)
+    wire, flags, valid = secp256k1_batch.prepare_batch([it[0].bytes() for it in items], [it[1] for it in items],
+                                                       [it[2] for it in items])
+    check(bool(valid.all()), "the signed secp256k1 commit packed with an invalid lane")
+    ops = secp256k1_ops_per_lane()
+    out = {}
+    for batch, plain_runs in ((N_VALIDATORS, 2), (BIG_BATCH, 1)):
+        lanes = np.arange(batch) % N_VALIDATORS
+        w_t, f_t = to_dev(dev, wire[:, lanes], flags[lanes])
+        row = kernel_row(
+            "secp256k1_verify", f"B={batch}", lambda: secp256k1_batch.verify_kernel(w_t, f_t),
+            lambda: secp256k1_batch.verify_plain(w_t, f_t), plain_runs,
+            (128 + 4 + 1) * batch, batch * ops, int_rate, errs, card)
+        check(bool(row.pop("got").all()), f"secp256k1_verify rejected a signed lane at B={batch}")
+        if batch == N_VALIDATORS:
+            out = row
+        else:
+            out.update({f"{k}_16384": v for k, v in row.items()})
+    print(f"time: secp256k1_verify model: {ops} int32 instructions a lane "
+          f"(fe_mul {K1_MUL_OPS}, fe_sq {K1_SQ_OPS}, fe_add {K1_ADD_OPS}) [{card}]")
+    return {"secp256k1_verify": out}
 
 
 def kernel_row(name, label, kernel, plain, plain_runs, nbytes, ops, int_rate, errs, card) -> dict:
@@ -861,15 +1073,44 @@ def time_end_to_end(vals, block_id, commit, window, card: str) -> None:
               f"= {BIG_BATCH / ms * 1e3:.0f} signatures/s, in turns [{card}]")
 
 
-def profile_commit(vals, block_id, commit, card: str, calls: int = 10) -> None:
-    """The device's busy and idle share over back-to-back resident
-    verify_commit calls, from a torch.profiler trace of the card."""
+def time_secp_end_to_end(svals, sblock_id, scommit, window, card: str) -> None:
+    """The secp256k1 set's verify_commit on the card and on "cpu" in turns,
+    its host packing alone, and the secp window's signatures per second."""
+
+    def verify(backend):
+        return lambda: svals.verify_commit(CHAIN_ID, sblock_id, scommit.height, scommit, backend=backend)
+
+    t = wall_ms_turns({"gpu": verify("gpu"), "cpu": verify("cpu")}, runs=8)
+    for label, (med, lo, hi) in t.items():
+        print(f"e2e: secp256k1 verify_commit {label} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{N_VALIDATORS} validators, in turns [{card}]")
+    items = precommits(svals, scommit)
+    cols = [it[0].bytes() for it in items], [it[1] for it in items], [it[2] for it in items]
+    s_values = [int.from_bytes(sig[32:], "big") for sig in cols[2]]
+    rows = [
+        ("  of which sign bytes", wall_ms(lambda: [scommit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(items))], runs=20)),
+        ("  of which packing (hashlib, s^-1)", wall_ms(lambda: secp256k1_batch.prepare_batch(*cols), runs=20)),
+        ("    of which pow(s, -1, n)", wall_ms(lambda: [pow(s, -1, secp.N) for s in s_values], runs=20)),
+        ("  of which verify_batch", wall_ms(lambda: secp256k1_batch.verify_batch(*cols), runs=20)),
+        ("secp256k1 flush gpu", wall_ms(lambda: flush(items, None), runs=20)),
+    ]
+    for label, ms in rows:
+        print(f"e2e: {label:34s} p50 {ms:.3f} ms host wall, {N_VALIDATORS} validators [{card}]")
+    w = wall_ms_turns({"four chunks": lambda: flush(window, None)}, runs=4, turns=4)
+    ms, lo, hi = w["four chunks"]
+    print(f"e2e: secp window {BIG_BATCH} lanes, four chunks p50 {ms:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}) "
+          f"= {BIG_BATCH / ms * 1e3:.0f} signatures/s [{card}]")
+
+
+def profile_commit(vals, block_id, commit, card: str, calls: int = 10, label: str = "resident, hit") -> None:
+    """The device's busy and idle share over back-to-back verify_commit
+    calls, from a torch.profiler trace of the card."""
     from torch.profiler import ProfilerActivity, profile
 
     def verify():
         vals.verify_commit(CHAIN_ID, block_id, commit.height, commit)
 
-    verify()  # the set is resident from here on
+    verify()  # warm: an Ed25519 set is resident from here on
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -879,11 +1120,11 @@ def profile_commit(vals, block_id, commit, card: str, calls: int = 10) -> None:
     events = prof.key_averages()
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     if busy_us <= 0:
-        print(f"profile: {calls} verify_commit calls, device time not measured (the trace holds no device events) [{card}]")
+        print(f"profile: {calls} verify_commit calls ({label}), device time not measured (the trace holds no device events) [{card}]")
         return
     top = sorted(events, key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)[:3]
     shares = ", ".join(f"{e.key[:40]} {e.self_device_time_total / busy_us:.1%}" for e in top)
-    print(f"profile: {calls} verify_commit calls (resident, hit): wall {wall_ms_total:.3f} ms, device busy "
+    print(f"profile: {calls} verify_commit calls ({label}): wall {wall_ms_total:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / wall_ms_total:.1%}; device time: {shares} [{card}]")
 
 
@@ -908,6 +1149,10 @@ def main() -> int:
     t0 = time.perf_counter()
     vals, block_id, commit = make_valset_and_commit()
     print(f"main: {N_VALIDATORS} validators signed in {time.perf_counter() - t0:.1f} s, total power {vals.total_voting_power()}")
+    t0 = time.perf_counter()
+    svals, sblock_id, scommit = make_valset_and_commit(secp, b"cosmoshub-secp-val-%d")
+    print(f"main: {N_VALIDATORS} secp256k1 validators signed in {time.perf_counter() - t0:.1f} s (pure Python), "
+          f"total power {svals.total_voting_power()}")
 
     errs = {
         "ed25519_verify_compact": check_ed25519(dev),
@@ -915,9 +1160,12 @@ def main() -> int:
         "ed25519_verify_full_compact": check_full_compact(dev),
         "sha256_blocks": check_sha256(dev),
         "merkle_level": check_merkle(dev),
+        "secp256k1_verify": check_secp(dev),
     }
 
-    launches, per_call = run_main_path(vals, block_id, commit)
+    t0 = time.perf_counter()
+    launches, per_call = run_main_path(vals, block_id, commit, svals, sblock_id, scommit)
+    print(f"main: every path in {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     print(f"main: launches {json.dumps(launches)}")
@@ -926,7 +1174,13 @@ def main() -> int:
     window, _ = window_items(vals, commit)
     time_end_to_end(vals, block_id, commit, window, card)
     profile_commit(vals, block_id, commit, card)
+    s_window, _ = secp_window_items(svals, scommit)
+    t0 = time.perf_counter()
+    time_secp_end_to_end(svals, sblock_id, scommit, s_window, card)
+    profile_commit(svals, sblock_id, scommit, card, label="secp256k1, add/verify")
+    print(f"time: the secp256k1 end-to-end timings took {time.perf_counter() - t0:.1f} s")
     times = time_kernels(vals, commit, card, errs)
+    times.update(time_secp_kernel(svals, scommit, card, errs))
     record = []
     for name, (source, replaces) in KERNELS.items():
         row = {

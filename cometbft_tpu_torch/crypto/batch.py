@@ -5,16 +5,20 @@ to the serial ``PubKey.verify_signature``. Two backends:
 
 * ``"cpu"`` — the pure-Python verifier, one signature at a time; the
   semantics ground truth.
-* ``"gpu"`` — every Ed25519 batch goes to the card, whatever its size.
-  The reference routes batches below 1,024 to the CPU (batch.py:68-88),
-  a floor measured over the TPU's link; here a 180-lane commit goes to
-  the card like any other. A flush whose keys are all in one resident
-  validator set takes the indexed route (``keystore.verify_batch_indexed``,
-  the keys stay on the card); any other takes ``ed25519_batch.verify_batch``
-  (keys shipped, chunked), as the reference's batch.py:335-344 does. A
-  key that is not Ed25519 raises NotImplementedError: the other curves
-  are not ported yet, and are never verified on the CPU behind the
-  caller's back.
+* ``"gpu"`` — the batch is split by curve, as the reference's
+  batch.py:287-348 does, and every part goes to the card, whatever its
+  size. The reference routes Ed25519 batches below 1,024 and secp256k1
+  batches below 256 (``CBFT_TPU_SECP_MIN_BATCH``, :273) to the CPU,
+  floors measured over the TPU's link; here a 180-lane commit goes to
+  the card like any other. Ed25519 lanes whose keys are all in one
+  resident validator set take the indexed route
+  (``keystore.verify_batch_indexed``, the keys stay on the card); other
+  Ed25519 lanes take ``ed25519_batch.verify_batch`` (keys shipped,
+  chunked), as the reference's :335-344 does. secp256k1 lanes take
+  ``secp256k1_batch.verify_batch``. A key of any other type (sr25519
+  until it is ported) raises NotImplementedError before anything is
+  launched: no lane is ever verified on the CPU behind the caller's
+  back. Verdicts come back in input order as Python bools.
 
 ``verify_commit_valset`` is the resident commit route that
 ``ValidatorSet`` takes under ``"gpu"``: the set's keys stay on the card
@@ -33,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import secp256k1 as secp
 
 
 class BatchVerifier:
@@ -78,7 +83,8 @@ class CPUBatchVerifier(_Collecting):
 
 
 class GPUBatchVerifier(_Collecting):
-    """Ed25519 batches through the CUDA kernel (crypto/cuda/ed25519_batch.py).
+    """Ed25519 and secp256k1 batches through the CUDA kernels
+    (crypto/cuda/ed25519_batch.py, secp256k1_batch.py).
 
     ``device`` defaults to the card; ``device="cpu"`` runs the kernel's
     plain torch version, as the CPU tests do. Constructing it for a CUDA
@@ -93,22 +99,34 @@ class GPUBatchVerifier(_Collecting):
             raise RuntimeError("the gpu backend needs a CUDA device; none is available")
 
     def verify(self) -> Tuple[bool, List[bool]]:
-        from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore
+        from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore, secp256k1_batch
 
         items = self._take()
         if not items:
             return False, []
-        for pk, _, _ in items:
-            if pk.type() != ed.KEY_TYPE:
+        by_curve: Dict[str, List[int]] = {ed.KEY_TYPE: [], secp.KEY_TYPE: []}
+        for i, (pk, _, _) in enumerate(items):
+            lanes = by_curve.get(pk.type())
+            if lanes is None:
                 raise NotImplementedError(
-                    f"the gpu backend verifies ed25519 only, not {pk.type()}"
+                    f"the gpu backend verifies ed25519 and secp256k1, not {pk.type()}"
                 )
-        pks = [pk.bytes() for pk, _, _ in items]
-        msgs = [msg for _, msg, _ in items]
-        sigs = [sig for _, _, sig in items]
-        mask = keystore.verify_batch_indexed(pks, msgs, sigs, self.device)
-        if mask is None:
-            mask = ed25519_batch.verify_batch(pks, msgs, sigs, device=self.device)
+            lanes.append(i)
+        mask = [False] * len(items)
+        for curve, lanes in by_curve.items():
+            if not lanes:
+                continue
+            pks = [items[i][0].bytes() for i in lanes]
+            msgs = [items[i][1] for i in lanes]
+            sigs = [items[i][2] for i in lanes]
+            if curve == ed.KEY_TYPE:
+                ok = keystore.verify_batch_indexed(pks, msgs, sigs, self.device)
+                if ok is None:
+                    ok = ed25519_batch.verify_batch(pks, msgs, sigs, device=self.device)
+            else:
+                ok = secp256k1_batch.verify_batch(pks, msgs, sigs, device=self.device)
+            for i, v in zip(lanes, ok):
+                mask[i] = bool(v)
         return all(mask), mask
 
 

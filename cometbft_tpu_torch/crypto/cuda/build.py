@@ -35,6 +35,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh", "sc25519.cuh", "sha512.cuh"),
     "sha256": ("sha256.cu", "sha256.cuh"),
     "merkle": ("merkle.cu", "sha256.cuh"),
+    "secp256k1_verify": ("secp256k1_verify.cu", "fe256k1.cuh"),
 }
 
 NVCC_FLAGS = [

@@ -12,8 +12,9 @@ Reference: cometbft_tpu/crypto/tpu/keystore.py. Two routes read it:
 
 An entry's ``table_dev`` is a ``torch.uint8[n, 32]`` tensor of the keys
 in set order, on the device it was built for. Entries are keyed on the
-valset id AND that ``torch.device``: a lookup from another device misses
-and builds its own table, so a table is never read on a device it was not
+valset id AND that device, resolved to its index (a bare ``"cuda"`` is
+the current card): a lookup from another device misses and builds its
+own table, so a table is never read on a device it was not
 made for (the reference keyed its compiled executables on shape alone and
 handed them placements they were not built for; ROADMAP C-ref 1). Every
 entry is stamped with the store generation (bumped on every upload and
@@ -82,7 +83,13 @@ def key_rows(pub_keys: Sequence) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _device_key(device) -> str:
-    return str(torch.device(device))
+    """The card a device names: a bare "cuda" is the current card, so
+    "cuda" and "cuda:0" find one entry, and an entry built while card 0
+    was current is not found for card 1."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+    return str(dev)
 
 
 class DeviceKeyStore:
@@ -296,4 +303,4 @@ def verify_batch_indexed(pub_keys: Sequence, msgs: Sequence, sigs: Sequence, dev
     with _default.pinned(entry.valset_id, device):
         out = ed25519_batch.verify_keyed(entry.table_dev, idx, entry.pk_arr[idx], msgs, sigs, device)
     _default.note_indexed(n)
-    return list(out)
+    return [bool(v) for v in out]

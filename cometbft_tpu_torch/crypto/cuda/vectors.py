@@ -1,13 +1,16 @@
-"""Ed25519 vectors for the verify contract, made from a seed.
+"""Ed25519 and secp256k1 vectors for the verify contracts, made from a seed.
 
-Each case is (label, public key, message, signature). They cover what the
-reference's contract names (cometbft_tpu/crypto/tpu/ed25519_batch.py:33-42)
-and what its tests probe: valid signatures; a corrupted R, S or message;
-a wrong key; s >= L; a non-canonical A; identity and small-order keys;
--0; a non-canonical R; a key that does not decompress; and a mixed batch.
-``chip_smoke.py`` holds the kernel against its plain version and the CPU
-verifier on them; the CPU tests hold the plain version against the
-reference package.
+Each case is (label, public key, message, signature). The Ed25519 cases
+cover what the reference's contract names
+(cometbft_tpu/crypto/tpu/ed25519_batch.py:33-42) and what its tests
+probe: valid signatures; a corrupted R, S or message; a wrong key;
+s >= L; a non-canonical A; identity and small-order keys; -0; a
+non-canonical R; a key that does not decompress; and a mixed batch.
+``secp256k1_cases`` covers the secp256k1 contract
+(cometbft_tpu/crypto/tpu/secp256k1_batch.py:19-31), and adds wire-level
+lanes for branches no signature reaches. ``chip_smoke.py`` holds the
+kernels against their plain versions and the CPU verifiers on them; the
+CPU tests hold the plain versions against the reference package.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import numpy as np
 
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
+from cometbft_tpu_torch.crypto import secp256k1 as secp
 
 Case = Tuple[str, bytes, bytes, bytes]
+# (label, qx, r, u1, u2, flags, verdict): one lane of the secp256k1 wire
+WireCase = Tuple[str, int, int, int, int, int, bool]
 
 
 def _flip(b: bytes, byte: int, mask: int) -> bytes:
@@ -140,3 +146,100 @@ def device_hash_cases(seed: int = 11) -> List[Case]:
     out.append(_torsioned_signature(0x1F2E3D4C, b"torsion-", True))
     out.append(_torsioned_signature(0x5A6B7C8D, b"torsion-", False))
     return out
+
+
+# --- secp256k1 ------------------------------------------------------------------
+
+
+def _is_square(v: int) -> bool:
+    return pow(v, (secp.P - 1) // 2, secp.P) in (0, 1)
+
+
+def _secp_sig(r: int, s: int) -> bytes:
+    return r.to_bytes(32, "big") + s.to_bytes(32, "big")
+
+
+def secp256k1_cases(seed: int = 13) -> Tuple[List[Case], List[WireCase]]:
+    """(signature-level cases, wire-level cases).
+
+    Signature level, held against the CPU verifier: valid signatures
+    (keys of both prefixes, an empty message); one flipped bit in r, in s
+    and in the message; the wrong key; the key's other parity; high S
+    (n - s of a valid signature); r or s equal to 0 or n; prefixes 0x04
+    and 0x00; 32- and 34-byte keys; a 63-byte signature; x = p and
+    x = 2^256 - 1; an x whose x³ + 7 is not a square.
+
+    Wire level, with the verdict each must give: Q with x = n + k
+    (x³ + 7 a square), u1 = 0, u2 = 1 and r = k accepts through the r + n
+    branch with flags bit 1 set and rejects with it clear; Q = G, u1 = 1,
+    u2 = n - 1 makes R' the point at infinity and rejects."""
+    rng = np.random.default_rng(seed)
+    n, p = secp.N, secp.P
+    keys, i = [], 0
+    while len({k.pub_key().bytes()[0] for k in keys}) < 2 or len(keys) < 4:
+        keys.append(secp.gen_priv_key_from_secret(b"secp-edge-%d" % i))
+        i += 1
+    pks = [k.pub_key().bytes() for k in keys]
+    msgs = [rng.bytes(int(rng.integers(1, 120))) for _ in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    r0, s0 = int.from_bytes(sigs[0][:32], "big"), int.from_bytes(sigs[0][32:], "big")
+    x0 = pks[0][1:]
+    bad_x = int.from_bytes(rng.bytes(32), "big") % p
+    while _is_square((pow(bad_x, 3, p) + 7) % p):
+        bad_x = (bad_x + 1) % p
+    cases: List[Case] = [("valid", pk, m, sg) for pk, m, sg in zip(pks, msgs, sigs)]
+    cases += [
+        ("valid_empty_msg", pks[1], b"", keys[1].sign(b"")),
+        ("flip_r", pks[0], msgs[0], _flip(sigs[0], 7, 0x10)),
+        ("flip_s", pks[1], msgs[1], _flip(sigs[1], 40, 0x01)),
+        ("flip_msg", pks[2], _flip(msgs[2], 0, 0x80), sigs[2]),
+        ("wrong_key", pks[3], msgs[0], sigs[0]),
+        ("other_parity", bytes([pks[0][0] ^ 1]) + x0, msgs[0], sigs[0]),
+        ("high_s", pks[0], msgs[0], _secp_sig(r0, n - s0)),
+        ("r_zero", pks[0], msgs[0], _secp_sig(0, s0)),
+        ("r_n", pks[0], msgs[0], _secp_sig(n, s0)),
+        ("s_zero", pks[0], msgs[0], _secp_sig(r0, 0)),
+        ("s_n", pks[0], msgs[0], _secp_sig(r0, n)),
+        ("prefix_04", b"\x04" + x0, msgs[0], sigs[0]),
+        ("prefix_00", b"\x00" + x0, msgs[0], sigs[0]),
+        ("key_32_bytes", pks[0][:32], msgs[0], sigs[0]),
+        ("key_34_bytes", pks[0] + b"\x00", msgs[0], sigs[0]),
+        ("sig_63_bytes", pks[0], msgs[0], sigs[0][:63]),
+        ("x_is_p", b"\x02" + p.to_bytes(32, "big"), msgs[0], sigs[0]),
+        ("x_all_ones", b"\x03" + b"\xff" * 32, msgs[0], sigs[0]),
+        ("x_not_on_curve", b"\x02" + bad_x.to_bytes(32, "big"), msgs[0], sigs[0]),
+    ]
+    k = 1
+    while not _is_square((pow(n + k, 3, p) + 7) % p):
+        k += 1
+    wire: List[WireCase] = [
+        ("r_plus_n", n + k, k, 0, 1, 2, True),
+        ("r_plus_n_flag_clear", n + k, k, 0, 1, 0, False),
+        ("infinity", secp.GX, 1, 1, n - 1, (secp.GY & 1) | 2, False),
+    ]
+    return cases, wire
+
+
+def secp256k1_mixed(n: int = 40, seed: int = 17) -> List[Case]:
+    """n secp256k1 signatures over random messages; every third has one
+    bit flipped."""
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+    for i in range(n):
+        k = secp.gen_priv_key_from_secret(b"secp-mixed-%d" % i)
+        m = rng.bytes(int(rng.integers(0, 200)))
+        s = k.sign(m)
+        label = "valid"
+        if i % 3 == 0:
+            s = _flip(s, int(rng.integers(0, 64)), 1 << int(rng.integers(0, 8)))
+            label = "flipped"
+        out.append((label, k.pub_key().bytes(), m, s))
+    return out
+
+
+def secp256k1_wire(cases: List[WireCase]) -> Tuple[np.ndarray, np.ndarray, List[bool]]:
+    """Wire-level cases → (wire u8[128, B], flags int32[B], verdicts), in
+    the layout of ``secp256k1_batch.prepare_batch``."""
+    rows = [b"".join(v.to_bytes(32, "little") for v in c[1:5]) for c in cases]
+    wire = np.frombuffer(b"".join(rows), np.uint8).reshape(len(cases), 128).T.copy()
+    return wire, np.array([c[5] for c in cases], np.int32), [c[6] for c in cases]

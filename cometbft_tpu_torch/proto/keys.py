@@ -1,8 +1,8 @@
 """tendermint.crypto.PublicKey — oneof {ed25519=1, secp256k1=2}.
 
-Reference: cometbft_tpu/proto/keys.py (proto/tendermint/crypto/keys.proto).
-The port has Ed25519 keys only; a secp256k1 key decodes to an error until
-that curve is ported.
+Reference: cometbft_tpu/proto/keys.py (proto/tendermint/crypto/keys.proto;
+crypto/encoding/codec.go). Both validator key types of the v0.34 wire
+encode, decode and convert; sr25519 has no field there.
 """
 
 from __future__ import annotations
@@ -11,9 +11,8 @@ from dataclasses import dataclass
 
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import secp256k1 as secp
 from cometbft_tpu_torch.libs import protoio
-
-SECP256K1_KEY_TYPE = "secp256k1"
 
 
 @dataclass(frozen=True)
@@ -24,6 +23,8 @@ class PublicKeyProto:
     def encode(self) -> bytes:
         if self.type == ed.KEY_TYPE:
             return protoio.field_bytes(1, self.data)
+        if self.type == secp.KEY_TYPE:
+            return protoio.field_bytes(2, self.data)
         raise ValueError(f"unsupported key type {self.type!r}")
 
     @classmethod
@@ -35,7 +36,7 @@ class PublicKeyProto:
             if field == 1:
                 typ, raw = ed.KEY_TYPE, r.read_bytes()
             elif field == 2:
-                typ, raw = SECP256K1_KEY_TYPE, r.read_bytes()
+                typ, raw = secp.KEY_TYPE, r.read_bytes()
             else:
                 r.skip(wt)
         if typ is None:
@@ -51,4 +52,6 @@ def pub_key_to_proto(pk: PubKey) -> PublicKeyProto:
 def pub_key_from_proto(p: PublicKeyProto) -> PubKey:
     if p.type == ed.KEY_TYPE:
         return ed.PubKeyEd25519(p.data)
+    if p.type == secp.KEY_TYPE:
+        return secp.PubKeySecp256k1(p.data)
     raise ValueError(f"unsupported key type {p.type!r}")

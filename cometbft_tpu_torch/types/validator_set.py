@@ -7,8 +7,9 @@ The VerifyCommit/VerifyCommitLight/VerifyCommitLightTrusting loops
 (cometbft_tpu_torch.crypto.batch): signatures are collected in order,
 verified as one batch, then the serial accept/reject/error sequencing is
 replayed against the validity mask. Errors keep the reference's types and
-messages. Verification runs on the card unless the caller passes
-``backend="cpu"``; ``hash()`` runs on the card unless the caller passes
+messages. Validators may hold Ed25519 or secp256k1 keys, the two key
+types of the v0.34 wire. Verification runs on the card unless the caller
+passes ``backend="cpu"``; ``hash()`` runs on the card unless the caller passes
 ``device="cpu"``, which takes the host tree.
 
 Proposer selection (a deterministic weighted round-robin over proposer
@@ -217,8 +218,11 @@ class ValidatorSet:
         (entry order). When every key is Ed25519 and the backend takes
         the resident route (``"gpu"``), the whole set is verified against
         keys that stay on the card across heights
-        (``crypto.batch.verify_commit_valset``); otherwise through the
-        add()/verify() protocol. The verdicts are the same either way."""
+        (``crypto.batch.verify_commit_valset``), as the reference's
+        validator_set.py:289 does. A set with any secp256k1 key goes
+        through the add()/verify() protocol, which under ``"gpu"`` splits
+        the lanes by curve and verifies each part on the card. The
+        verdicts are the same either way."""
         if not entries:
             return []
         if cryptobatch.resident_commit_eligible(len(entries), backend) and all(

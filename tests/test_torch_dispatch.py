@@ -11,13 +11,16 @@ the CPU.
   numpy arrays copied to the device and tensors and None passed through;
 * a set cancel event raises ``DispatchCancelled`` at the next chunk edge;
 * an invalid ``CBFT_TPU_MAX_CHUNK`` raises; the configured cap yields to
-  the environment.
+  the environment;
+* a gpu verifier's flush on the keyed route, and ``"cpu"``'s, give Python
+  bools.
 
 Verdicts are compared with exact equality. One test runs every check
 (see tests/test_torch_field.py for why each of these files holds one
 test).
 """
 
+import json
 import threading
 
 import numpy as np
@@ -25,9 +28,10 @@ import pytest
 import torch
 
 from cometbft_tpu.crypto import ed25519 as ref_ed
+from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
-from cometbft_tpu_torch.crypto.cuda import ed25519_batch, mesh
+from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore, mesh
 
 torch.set_num_threads(1)
 
@@ -128,8 +132,28 @@ def check_knobs(monkeypatch):
         mesh.configure_chunk_cap(0)
 
 
+def check_keyed_and_cpu_verdicts_are_bools(monkeypatch):
+    """A flush that no resident set covers takes the keyed route; its
+    verdicts, like "cpu"'s, are Python bools in input order."""
+    store = keystore.default_store()
+    store.invalidate()
+    pks, msgs, sigs = _batch(7, corrupt_every=3)
+    want = [purepy.ed25519_verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    base = store.snapshot()["stats"]["indexed_dispatches"]
+    for backend in (lambda: port_batch.GPUBatchVerifier(device="cpu"), "cpu"):
+        bv = port_batch.new_batch_verifier(backend)
+        for p, m, s in zip(pks, msgs, sigs):
+            bv.add(ed.PubKeyEd25519(p), m, s)
+        ok, mask = bv.verify()
+        assert (ok, mask) == (False, want) and want.count(False) == 3
+        assert all(type(v) is bool for v in mask)
+        assert json.loads(json.dumps(mask)) == want
+    assert store.snapshot()["stats"]["indexed_dispatches"] == base
+
+
 def test_chunked_dispatch(monkeypatch):
     for check in (check_chunk_edges_keep_lane_order, check_loop_order,
-                  check_cancel_at_a_chunk_edge, check_knobs):
+                  check_cancel_at_a_chunk_edge, check_knobs,
+                  check_keyed_and_cpu_verdicts_are_bools):
         with monkeypatch.context() as m:
             check(m)

@@ -20,7 +20,12 @@
   and errors equal ``"cpu"``'s with an absent lane, a corrupted
   signature, s ≥ L and a commit under 2/3, its lane verdicts those of
   the reference's ``crypto/ed25519.py``; a flush of the resident keys
-  takes the indexed route.
+  takes the indexed route;
+* its verdicts are Python bools, on the indexed route and through a gpu
+  verifier's flush;
+* device keys: a bare ``"cuda"`` resolves to the current card, so
+  ``"cuda"`` and ``"cuda:0"`` find one entry and another current card
+  misses (``torch.cuda``'s current device and availability patched).
 
 Verdicts are compared with exact equality. One test runs every check
 (see tests/test_torch_field.py for why each of these files holds one
@@ -327,6 +332,53 @@ def check_commit_takes_the_resident_route(store, monkeypatch):
     assert store.snapshot()["stats"]["indexed_dispatches"] == before + 1
 
 
+def check_indexed_verdicts_are_bools(store):
+    """The indexed route hands out Python bools, through the key store and
+    through a gpu verifier's flush."""
+    keys, pks, vid = _valset(5, b"bools")
+    msgs, sigs = _flush(keys, b"bool flush")
+    sigs[2] = sigs[2][:3] + bytes([sigs[2][3] ^ 1]) + sigs[2][4:]
+    assert ed25519_batch.verify_valset_resident(vid, pks, msgs, sigs, device=CPU) == [True, True, False, True, True]
+    got = keystore.verify_batch_indexed(pks, msgs, sigs, CPU)
+    assert got == [True, True, False, True, True] and all(type(v) is bool for v in got)
+    base = store.snapshot()["stats"]["indexed_dispatches"]
+    bv = port_batch.GPUBatchVerifier(device="cpu")
+    for k, m, s in zip(keys, msgs, sigs):
+        bv.add(k.pub_key(), m, s)
+    ok, mask = bv.verify()
+    assert (ok, mask) == (False, got) and all(type(v) is bool for v in mask)
+    assert store.snapshot()["stats"]["indexed_dispatches"] == base + 1
+    store.invalidate()
+
+
+def check_device_keys(store, monkeypatch):
+    """A bare "cuda" is the current card: "cuda" and "cuda:0" find one
+    entry, and an entry built while card 0 was current is not found once
+    card 1 is."""
+    assert keystore._device_key("cpu") == keystore._device_key(CPU) == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert keystore._device_key("cuda") == "cuda:0"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert keystore._device_key("cuda") == keystore._device_key("cuda:0") == "cuda:0"
+    pks, vid = _fake_keys(b"dev-key"), hashlib.sha256(b"dev-key").digest()
+    meta = torch.device("meta")
+
+    def build(keys):
+        return keystore.new_entry(keys, torch.empty((len(keys), 32), dtype=torch.uint8, device=meta), "cuda")
+
+    base = store.snapshot()["stats"]["uploads"]
+    e = store.get(vid, pks, build, "cuda")
+    assert store.get(vid, pks, build, "cuda:0") is e
+    assert store.covering_entry(pks, "cuda:0") is e and store.covering_entry(pks, torch.device("cuda", 0)) is e
+    assert store.snapshot()["stats"]["uploads"] == base + 1
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert keystore._device_key("cuda") == "cuda:1"
+    assert store.lookup_fresh("cuda") == [] and store.covering_entry(pks, "cuda") is None
+    assert store.covering_entry(pks, "cuda:0") is e
+    store.invalidate()
+
+
 def test_keystore_and_resident_routes(monkeypatch):
     store = keystore.default_store()
     store.invalidate()
@@ -339,5 +391,9 @@ def test_keystore_and_resident_routes(monkeypatch):
         check_resident_kernel_matches_reference()
         with monkeypatch.context() as m:
             check_commit_takes_the_resident_route(store, m)
+        store.invalidate()
+        check_indexed_verdicts_are_bools(store)
+        with monkeypatch.context() as m:
+            check_device_keys(store, m)
     finally:
         store.invalidate()

@@ -26,7 +26,8 @@ from cometbft_tpu.types.validator_set import ValidatorSet as RefValidatorSet
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import batch as port_batch
-from cometbft_tpu_torch.crypto.cuda import merkle
+from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto.cuda import ed25519_batch, merkle, secp256k1_batch
 from cometbft_tpu_torch.crypto.ed25519 import PubKeyEd25519
 from cometbft_tpu_torch.types.block import BlockID
 from cometbft_tpu_torch.types.validator import Validator
@@ -170,21 +171,36 @@ def check_gpu_verifier_plain_version(vs, block_id, commit):
 
 class _OtherKey(PubKey):
     def bytes(self) -> bytes:
-        return b"\x02" * 33
+        return b"\x02" * 32
 
     def type(self) -> str:
-        return "secp256k1"
+        return "sr25519"
 
 
 def check_gpu_verifier_rules(vs, block_id, commit):
-    bv = _gpu_on_cpu()
-    bv.add(_OtherKey(), b"m", b"\x00" * 64)
+    """A key type the port cannot verify raises NotImplementedError before
+    any launch, even beside keys it can; a secp256k1 key verifies."""
+    launched = []
+    real = secp256k1_batch.verify_kernel, ed25519_batch.verify_kernel_compact
+    secp256k1_batch.verify_kernel = lambda *a: launched.append("secp256k1") or real[0](*a)
+    ed25519_batch.verify_kernel_compact = lambda *a: launched.append("ed25519") or real[1](*a)
     try:
-        bv.verify()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("a secp256k1 key under gpu did not raise NotImplementedError")
+        bv = _gpu_on_cpu()
+        k = secp.gen_priv_key_from_secret(b"rules")
+        bv.add(k.pub_key(), b"m", k.sign(b"m"))
+        bv.add(PubKeyEd25519(vs.validators[0].pub_key.bytes()), b"m", b"\x00" * 64)
+        bv.add(_OtherKey(), b"m", b"\x00" * 64)
+        try:
+            bv.verify()
+        except NotImplementedError as e:
+            assert "sr25519" in str(e)
+        else:
+            raise AssertionError("an sr25519 key under gpu did not raise NotImplementedError")
+        assert launched == []
+        bv.add(k.pub_key(), b"m", k.sign(b"m"))
+        assert bv.verify() == (True, [True]) and launched == ["secp256k1"]
+    finally:
+        secp256k1_batch.verify_kernel, ed25519_batch.verify_kernel_compact = real
     assert _gpu_on_cpu().verify() == (False, [])
     assert port_batch.new_batch_verifier("cpu").verify() == (False, [])
     try:
