@@ -6,8 +6,9 @@ Phases, each of which fails the run (non-zero exit, no last line) if it
 goes wrong:
 
 1. build   — compile every kernel of the path from csrc/ (one nvcc per
-             source, started together) and print the seconds it took and
-             the compiler's register, stack and spill report;
+             source, started together) and print the seconds it took,
+             each library's own, and the compiler's register, stack and
+             spill report;
 2. kernels — hold each kernel against its plain torch version on the card:
              Ed25519 (compact wire) on the contract's edge cases and a
              mixed batch (and against the CPU verifier); the resident
@@ -22,7 +23,12 @@ goes wrong:
              {1, 2, 3, 5, 180, 4097} (and against the host tree);
              secp256k1_verify on the secp256k1 contract's cases, 40 mixed
              lanes (and against the CPU verifier) and the wire-level
-             r + n and point-at-infinity lanes;
+             r + n and point-at-infinity lanes; sr25519_verify on the
+             sr25519 contract's cases (every way a ristretto decode
+             fails) and 40 mixed lanes (and against the CPU verifier);
+             ed25519_verify_words and ed25519_verify_full_words on the
+             edge, device-hash and mixed cases (and against the CPU
+             verifier);
 3. main    — a 180-validator set (the Cosmos Hub's active set) with seeded
              keys and powers and a commit that all of them sign, driven
              through the entry points a node calls, path by path, each
@@ -63,6 +69,21 @@ goes wrong:
                              new_batch_verifier("gpu") flush == "cpu";
              secp window   — 16,384 secp256k1 lanes (16 corrupted) in four
                              4,096-lane chunks give the expected mask;
+             and with 180 seeded sr25519 keys, key i signing precommit
+             i's sign bytes:
+             sr flush      — the 180 sr25519 lanes (one corrupted) through
+                             new_batch_verifier("gpu") == "cpu";
+             three-curve flush — the 180 Ed25519 (indexed), 180 secp256k1
+                             and 180 sr25519 lanes, interleaved, one of
+                             each corrupted, in one flush == "cpu";
+             sr window     — 8,192 sr25519 lanes (8 corrupted), one chunk,
+                             give the expected mask; run once (host merlin
+                             costs seconds), and that pass is timed;
+             words         — with the key store emptied, the precommits
+                             under CBFT_TPU_WIRE=words take
+                             ed25519_verify_words, and with
+                             CBFT_TPU_HASH=device ed25519_verify_full_words,
+                             == "cpu";
              the indexed flush also checks that a
              GPUBatchVerifier(device="cuda:0") finds the set uploaded
              under "cuda" (no second upload);
@@ -73,13 +94,17 @@ goes wrong:
              resident verify_commit calls (torch.profiler); the secp256k1
              set's verify_commit on "gpu" and "cpu" in turns, its packing
              alone, the secp window's signatures per second and the idle
-             share over ten of its verify_commit calls; CUDA-event
-             medians of each kernel
+             share over ten of its verify_commit calls; the sr flush on
+             "gpu" and "cpu" in turns, its packing alone and the sr
+             window's signatures per second; CUDA-event medians of each
+             kernel
              beside its plain version and its bound (the larger of bytes
              over 3.35 TB/s and 32-bit integer operations over the card's
-             integer rate), at the main path's shapes (B=180 and 16,384),
-             where each kernel's output must again equal its plain
-             version's exactly.
+             integer rate), at the main path's shapes (B=180 and 16,384;
+             8,192 for sr25519), where each kernel's output must again
+             equal its plain version's exactly.
+
+Each phase prints its seconds ("phase:" lines).
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero
@@ -105,6 +130,7 @@ from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import merkle as host_merkle
 from cometbft_tpu_torch.crypto import purepy
 from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto import sr25519 as sr
 from cometbft_tpu_torch.crypto.cuda import (
     build,
     ed25519_batch,
@@ -113,6 +139,7 @@ from cometbft_tpu_torch.crypto.cuda import (
     mesh,
     secp256k1_batch,
     sha256,
+    sr25519_batch,
     vectors,
 )
 from cometbft_tpu_torch.proto.gogo import Timestamp
@@ -129,6 +156,7 @@ from cometbft_tpu_torch.types.validator_set import Fraction, ValidatorSet
 SEED = 20261017
 N_VALIDATORS = 180  # Cosmos Hub x/staking max_validators
 BIG_BATCH = 16384  # ~91 commits of 180, as in blocksync
+SR_WINDOW = 8192  # one full sr25519 chunk (the reference's _MAX_CHUNK); host merlin ~3 ms a lane
 CHAIN_ID = "cosmoshub-4"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -152,6 +180,9 @@ SHA_BLOCK_OPS = 64 * 25 + 48 * 13 + 8  # rounds, schedule, feed-forward
 # maj, 5 adds), a schedule word 26, the feed-forward 16, and 6 per byte to
 # assemble the block from the wire and the message plane.
 SHA512_BLOCK_OPS = 80 * 40 + 64 * 26 + 16 + 128 * 6
+# the same block read as 16 pre-padded hi/lo word pairs (two loads, a shift
+# and an or each) on the word wire
+SHA512_WORDS_BLOCK_OPS = 80 * 40 + 64 * 26 + 16 + 16 * 4
 # sc_reduce: 24 limb reads of 8, 14 folds of 6 64-bit multiply-adds (6
 # each), 46 carries of 8, 12 limbs packed at 6.
 SC_REDUCE_OPS = 24 * 8 + 14 * 6 * 6 + 46 * 8 + 12 * 6
@@ -185,6 +216,12 @@ KERNELS = {
         "cometbft_tpu_torch/crypto/cuda/csrc/secp256k1_verify.cu",
         "cometbft_tpu/crypto/tpu/secp256k1_batch.py:179",
     ),
+    "sr25519_verify": (
+        "cometbft_tpu_torch/crypto/cuda/csrc/sr25519_verify.cu",
+        "cometbft_tpu/crypto/tpu/sr25519_batch.py:88",
+    ),
+    "ed25519_verify_words": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:328"),
+    "ed25519_verify_full_words": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:351"),
 }
 
 
@@ -211,6 +248,9 @@ def reset_counts() -> None:
     sha256.LAUNCHES = 0
     merkle.LAUNCHES = 0
     secp256k1_batch.LAUNCHES = 0
+    sr25519_batch.LAUNCHES = 0
+    ed25519_batch.WORDS_LAUNCHES = 0
+    ed25519_batch.FULL_WORDS_LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -221,6 +261,9 @@ def counts() -> dict:
         "sha256_blocks": sha256.LAUNCHES,
         "merkle_level": merkle.LAUNCHES,
         "secp256k1_verify": secp256k1_batch.LAUNCHES,
+        "sr25519_verify": sr25519_batch.LAUNCHES,
+        "ed25519_verify_words": ed25519_batch.WORDS_LAUNCHES,
+        "ed25519_verify_full_words": ed25519_batch.FULL_WORDS_LAUNCHES,
     }
 
 
@@ -241,6 +284,23 @@ def cuda_ms(fn, runs: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def plain_timed(plain, runs: int):
+    """(output, median CUDA-event ms) of ``runs`` calls of a plain version;
+    the first call's output is the one checked, so a plain version, which
+    takes seconds, is not run once more just for the check."""
+    out, times = None, []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = plain()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        out = got if out is None else out
+    return out, statistics.median(times)
+
+
 def int32_ops_per_s() -> float:
     """The card's 32-bit integer instruction rate: SMs x 64 lanes x the
     max SM clock."""
@@ -258,24 +318,48 @@ def bound(nbytes: float, ops: float, int_rate: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ed25519_ops_per_lane() -> int:
-    """32-bit integer instructions that one lane of the kernel needs at
-    least, whatever its data (the loop has no early exit), from the field
-    operations it runs (ed25519_verify.cu, fe25519.cuh)."""
+def straus25519_counts():
+    """(squarings, products, sums) of the joint Straus core that the
+    Ed25519 and sr25519 kernels share: −A's X and T, the base points' T,
+    2B, 3B, −2A, −3A, the 16-entry table and 127 steps of two doublings
+    and one cached addition (fe25519.cuh)."""
     dbl = (4, 4, 8)  # squarings, products, sums of ge_dbl
     add_cached = (0, 8, 6)
     to_cached = (0, 1, 3)
     ge_add = tuple(a + b for a, b in zip(to_cached, add_cached))
-    decompress = (4 + 251, 7 + 11, 4)  # with fe_pow_p58
     setup = tuple(2 * d + 2 * a for d, a in zip(dbl, ge_add))  # 2B, 3B, -2A, -3A
     setup = (setup[0], setup[1] + 2, setup[2] + 1)  # the T of B and -A, -A's X
     table = tuple(9 * a + 16 * c for a, c in zip(ge_add, to_cached))
     loop = tuple(127 * (2 * d + a) for d, a in zip(dbl, add_cached))
+    return tuple(setup[k] + table[k] + loop[k] for k in range(3))
+
+
+def curve25519_ops(extra, canonical: int) -> int:
+    """32-bit integer instructions of a lane: the Straus core plus
+    ``extra`` (squarings, products, sums) and ``canonical`` reductions,
+    plus the 127 digit reads of each scalar."""
+    sq, mul, add = (c + e for c, e in zip(straus25519_counts(), extra))
+    return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS + 127 * 8
+
+
+def ed25519_ops_per_lane() -> int:
+    """32-bit integer instructions that one lane of the kernel needs at
+    least, whatever its data (the loop has no early exit), from the field
+    operations it runs (ed25519_verify.cu, fe25519.cuh)."""
+    decompress = (4 + 251, 7 + 11, 4)  # with fe_pow_p58
     final = (254, 11 + 2, 0)  # fe_invert, then x and y
-    sq, mul, add = (sum(p[k] for p in (decompress, setup, table, loop, final)) for k in range(3))
-    canonical = 5 + 2
-    digits = 127 * 8
-    return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS + digits
+    return curve25519_ops(tuple(d + f for d, f in zip(decompress, final)), 5 + 2)
+
+
+def sr25519_ops_per_lane() -> int:
+    """32-bit integer instructions that one lane of sr25519_verify needs at
+    least: two ristretto255 decodes (each 5 squarings and fe_pow_p58's 251,
+    27 products with its 11, 6 sums, 10 canonical forms; the data-dependent
+    product by sqrt(-1) and negations not counted), the Straus core, and
+    the check's four products and two comparisons (sr25519_verify.cu)."""
+    decode = (5 + 251, 16 + 11, 6)
+    check_ = (0, 4, 0)
+    return curve25519_ops(tuple(2 * d + c for d, c in zip(decode, check_)), 2 * 10 + 4)
 
 
 def secp256k1_ops_per_lane() -> int:
@@ -396,6 +480,53 @@ def check_secp(dev) -> int:
     print(f"kernels: secp256k1_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, "
           f"wire-level r + n and infinity lanes {w_want}, max_abs_err {err}")
     return err
+
+
+def sr_cpu(pks, msgs, sigs):
+    """The CPU verifier's verdicts; a key that is not 32 bytes rejects."""
+    return [len(p) == 32 and sr.PubKeySr25519(p).verify_signature(m, s) for p, m, s in zip(pks, msgs, sigs)]
+
+
+def check_sr25519(dev) -> int:
+    """sr25519_verify == its plain version on the card == the CPU verifier
+    on the sr25519 contract's cases and 40 mixed lanes."""
+    cases = vectors.sr25519_cases(SEED) + vectors.sr25519_mixed(40, SEED)
+    pks, msgs, sigs = [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
+    wire, valid = sr25519_batch.prepare_batch(pks, msgs, sigs)
+    (w_t,) = to_dev(dev, wire)
+    got = sr25519_batch.verify_kernel(w_t)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, sr25519_batch.verify_plain(w_t))
+    check(err == 0, "sr25519_verify disagrees with its plain version")
+    cpu = sr_cpu(pks, msgs, sigs)
+    check((got.cpu().numpy() & valid).tolist() == cpu, "sr25519_verify disagrees with the CPU verifier")
+    print(f"kernels: sr25519_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, max_abs_err {err}")
+    return err
+
+
+def check_words(dev) -> dict:
+    """ed25519_verify_words and ed25519_verify_full_words == their plain
+    versions == the CPU verifier on the edge, device-hash (torsioned lanes
+    included) and mixed cases."""
+    cases, pks, msgs, sigs = edge_columns()
+    cpu = [purepy.ed25519_verify(*c[1:]) for c in cases]
+    wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
+    (w_t,) = to_dev(dev, wire)
+    got = ed25519_batch.verify_kernel_words(w_t)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ed25519_batch.verify_words_plain(w_t))
+    check(err == 0, "ed25519_verify_words disagrees with its plain version")
+    check((got.cpu().numpy() & valid).tolist() == cpu, "ed25519_verify_words disagrees with the CPU verifier")
+    packed = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
+    args = to_dev(dev, *packed[:4])
+    got = ed25519_batch.verify_kernel_full_words(*args)
+    torch.cuda.synchronize()
+    err_full = max_abs_err(got, ed25519_batch.verify_full_words_plain(*args))
+    check(err_full == 0, "ed25519_verify_full_words disagrees with its plain version")
+    check((got.cpu().numpy() & packed[4]).tolist() == cpu, "ed25519_verify_full_words disagrees with the CPU verifier")
+    print(f"kernels: ed25519_verify_words and ed25519_verify_full_words ({packed[1].shape[0]} blocks) "
+          f"{len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, max_abs_err {err}, {err_full}")
+    return {"ed25519_verify_words": err, "ed25519_verify_full_words": err_full}
 
 
 def to_dev(dev, *arrays):
@@ -756,6 +887,129 @@ def secp_window_path(items, want, per_call):
     print(f"main: secp window of {BIG_BATCH} lanes == expected mask ({want.count(False)} rejected) in {launched} chunks")
 
 
+def flip(sig: bytes, byte: int, mask: int) -> bytes:
+    return sig[:byte] + bytes([sig[byte] ^ mask]) + sig[byte + 1:]
+
+
+def lane_columns(items):
+    """[(pub key, msg, sig)] → (key bytes, msgs, sigs), as the packings take them."""
+    return [it[0].bytes() for it in items], [it[1] for it in items], [it[2] for it in items]
+
+
+def make_sr_lanes(commit):
+    """180 seeded sr25519 keys, key i signing precommit i's vote sign bytes:
+    [(pub key, msg, sig)]. sr25519 is no validator key type of the v0.34
+    wire, so its lanes reach the card through the batch verifier."""
+    keys = [sr.gen_priv_key_from_secret(b"cosmoshub-sr-val-%d" % i) for i in range(N_VALIDATORS)]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(N_VALIDATORS)]
+    return [(k.pub_key(), m, k.sign(m)) for k, m in zip(keys, msgs)]
+
+
+def sr_flush_path(sr_lanes, per_call):
+    """The 180 sr25519 lanes, one corrupted, through new_batch_verifier("gpu")."""
+    items = list(sr_lanes)
+    pk, msg, sig = items[11]
+    items[11] = (pk, msg, flip(sig, 20, 0x04))
+    got = flush(items, None)
+    want = flush(items, "cpu")
+    check(got == want and want[1].count(False) == 1 and not want[1][11], "the sr flush != cpu")
+    check(all(type(v) is bool for v in got[1]), "the sr flush's verdicts are not Python bools")
+    per_call["sr flush"] = {k: v for k, v in counts().items() if v}
+    print(f"main: sr flush of {len(items)} sr25519 lanes (1 corrupted) == cpu")
+
+
+def three_curve_flush_path(vals, block_id, commit, svals, scommit, sr_lanes, per_call):
+    """The 180 Ed25519 precommits (the set resident: indexed), the 180
+    secp256k1 precommits and the 180 sr25519 lanes, interleaved and one of
+    each corrupted, in one new_batch_verifier("gpu") flush == "cpu", in
+    input order."""
+    vals.verify_commit(CHAIN_ID, block_id, commit.height, commit)  # the node's commit check: resident
+    batches = [precommits(vals, commit), precommits(svals, scommit), list(sr_lanes)]
+    for batch, lane in zip(batches, (5, 7, 9)):
+        pk, msg, sig = batch[lane]
+        batch[lane] = (pk, msg, flip(sig, 9, 0x40))
+    items = [it for triple in zip(*batches) for it in triple]
+    base = store_stats()
+    got = flush(items, None)
+    after = store_stats()
+    want = flush(items, "cpu")
+    bad = [i for i, v in enumerate(want[1]) if not v]
+    check(got == want and bad == [3 * 5, 3 * 7 + 1, 3 * 9 + 2], f"the three-curve flush != cpu (cpu rejects {bad})")
+    check(all(type(v) is bool for v in got[1]), "the three-curve flush's verdicts are not Python bools")
+    check(after["indexed_dispatches"] == base["indexed_dispatches"] + 1 and after["uploads"] == base["uploads"],
+          "the three-curve flush's Ed25519 lanes did not take the indexed route")
+    per_call["three-curve flush"] = {k: v for k, v in counts().items() if v}
+    print(f"main: three-curve flush of {len(items)} lanes (Ed25519 indexed, secp256k1, sr25519), "
+          f"interleaved == cpu, in order")
+
+
+def sr_window_items(sr_lanes):
+    """SR_WINDOW sr25519 lanes tiling the 180, 8 with a corrupted signature,
+    and the expected mask."""
+    items = [sr_lanes[i % len(sr_lanes)] for i in range(SR_WINDOW)]
+    want = [True] * SR_WINDOW
+    for lane in range(0, SR_WINDOW, SR_WINDOW // 8):
+        pk, msg, sig = items[lane]
+        items[lane] = (pk, msg, flip(sig, lane % 64, 0x08))
+        want[lane] = pk.verify_signature(msg, items[lane][2])
+        check(not want[lane], f"sr window lane {lane}: the corrupted signature verified on cpu")
+    return items, want
+
+
+def sr_window_path(items, want, per_call, sr_timing):
+    """The sr25519 window: one full chunk. Run once, and timed as it runs
+    (host merlin costs seconds a pass): the flush's host wall and its
+    packing alone go into ``sr_timing``."""
+    real = sr25519_batch.prepare_batch
+    packing = []
+
+    def timed_prepare(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        packing.append(time.perf_counter() - t0)
+        return out
+
+    sr25519_batch.prepare_batch = timed_prepare
+    try:
+        t0 = time.perf_counter()
+        ok, mask = flush(items, None)
+        wall = time.perf_counter() - t0
+    finally:
+        sr25519_batch.prepare_batch = real
+    check(mask == want and not ok, "sr window mask != expected")
+    launched = counts()["sr25519_verify"]
+    check(launched == len(packing) == 1, f"sr window ran as {launched} launches, want 1 chunk")
+    sr_timing["window_s"], sr_timing["packing_s"] = wall, sum(packing)
+    per_call["sr window"] = {k: v for k, v in counts().items() if v}
+    print(f"main: sr window of {SR_WINDOW} lanes == expected mask ({want.count(False)} rejected) in {launched} chunk; "
+          f"host wall {wall:.3f} s, of which packing (merlin) {sum(packing):.3f} s")
+
+
+def words_path(vals, commit, per_call):
+    """With the key store emptied, the 180 precommits (one corrupted) under
+    CBFT_TPU_WIRE=words take ed25519_verify_words, and with
+    CBFT_TPU_HASH=device added ed25519_verify_full_words; both == "cpu"."""
+    items = precommits(vals, commit)
+    pk, msg, sig = items[23]
+    items[23] = (pk, msg, flip(sig, 50, 0x02))
+    want = flush(items, "cpu")
+    check(not want[0] and want[1].count(False) == 1, "the corrupted words flush did not fail on cpu")
+    keystore.default_store().invalidate()
+    os.environ["CBFT_TPU_WIRE"] = "words"
+    try:
+        for hash_env, kernel in (("host", "ed25519_verify_words"), ("device", "ed25519_verify_full_words")):
+            os.environ["CBFT_TPU_HASH"] = hash_env
+            before = counts()
+            got = flush(items, None)
+            check(got == want, f"the {kernel} flush != cpu")
+            check(all(type(v) is bool for v in got[1]), f"the {kernel} flush's verdicts are not Python bools")
+            check(counts()[kernel] == before[kernel] + 1, f"the flush with CBFT_TPU_HASH={hash_env} did not take {kernel}")
+    finally:
+        del os.environ["CBFT_TPU_WIRE"], os.environ["CBFT_TPU_HASH"]
+    per_call["words"] = {k: v for k, v in counts().items() if v}
+    print(f"main: CBFT_TPU_WIRE=words flushes of {len(items)} precommits (host hash, then device hash) == cpu")
+
+
 PATHS = {  # path -> the kernels it must launch
     "commit": ("ed25519_verify_resident", "sha256_blocks", "merkle_level"),
     "indexed flush": ("ed25519_verify_resident",),
@@ -764,14 +1018,21 @@ PATHS = {  # path -> the kernels it must launch
     "secp commit": ("secp256k1_verify", "sha256_blocks", "merkle_level"),
     "mixed flush": ("secp256k1_verify", "ed25519_verify_resident"),
     "secp window": ("secp256k1_verify",),
+    "sr flush": ("sr25519_verify",),
+    "three-curve flush": ("ed25519_verify_resident", "secp256k1_verify", "sr25519_verify"),
+    "sr window": ("sr25519_verify",),
+    "words": ("ed25519_verify_words", "ed25519_verify_full_words"),
 }
 
 
-def run_main_path(vals, block_id, commit, svals, sblock_id, scommit):
+def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes):
     """Each path with the counts set to 0 just before it and read just
-    after; returns (launches summed over the paths, per call)."""
+    after; returns (launches summed over the paths, per call, the sr
+    window's timing)."""
     items, want = window_items(vals, commit)
     s_items, s_want = secp_window_items(svals, scommit)
+    r_items, r_want = sr_window_items(sr_lanes)
+    sr_timing = {}
     steps = {
         "commit": lambda pc: commit_path(vals, block_id, commit, pc),
         "indexed flush": lambda pc: indexed_flush_path(vals, commit, pc),
@@ -780,6 +1041,10 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit):
         "secp commit": lambda pc: secp_commit_path(svals, sblock_id, scommit, pc),
         "mixed flush": lambda pc: mixed_flush_path(vals, block_id, commit, svals, scommit, pc),
         "secp window": lambda pc: secp_window_path(s_items, s_want, pc),
+        "sr flush": lambda pc: sr_flush_path(sr_lanes, pc),
+        "three-curve flush": lambda pc: three_curve_flush_path(vals, block_id, commit, svals, scommit, sr_lanes, pc),
+        "sr window": lambda pc: sr_window_path(r_items, r_want, pc, sr_timing),
+        "words": lambda pc: words_path(vals, commit, pc),
     }
     total = {k: 0 for k in counts()}
     per_call = {}
@@ -793,7 +1058,7 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit):
         print(f"main: path {name!r} launches {json.dumps({k: v for k, v in got.items() if v})}")
         total = {k: total[k] + got[k] for k in total}
     keystore.default_store().invalidate()
-    return total, per_call
+    return total, per_call, sr_timing
 
 
 # --- phase 4: times ------------------------------------------------------------
@@ -821,14 +1086,13 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
     def ed_row(batch, plain_runs):
         w = torch.from_numpy(np.ascontiguousarray(np.tile(wire_np, (1, -(-batch // N_VALIDATORS)))[:, :batch])).to(dev)
         got = ed25519_batch.verify_kernel_compact(w)
-        plain = ed25519_batch.verify_compact_plain(w)
+        plain, plain_ms = plain_timed(lambda: ed25519_batch.verify_compact_plain(w), plain_runs)
         err = max_abs_err(got, plain)
         check(err == 0, f"ed25519 kernel disagrees with its plain version at B={batch}")
         check(bool(got.all()), f"ed25519 kernel rejected a signed lane at B={batch}")
         errs["ed25519_verify_compact"] = max(errs["ed25519_verify_compact"], err)
         print(f"kernels: ed25519 B={batch} == plain, all {batch} accepted, max_abs_err {err}")
         ms = cuda_ms(lambda: ed25519_batch.verify_kernel_compact(w), runs=20)
-        plain_ms = cuda_ms(lambda: ed25519_batch.verify_compact_plain(w), runs=plain_runs, warmup=0)
         b_ms, b_by = bound(batch * (128 + 1), batch * ed25519_ops_per_lane(), int_rate)
         return ms, plain_ms, b_ms, b_by
 
@@ -916,16 +1180,76 @@ def time_secp_kernel(svals, scommit, card: str, errs: dict) -> dict:
     return {"secp256k1_verify": out}
 
 
+def time_sr_kernel(sr_lanes, card: str, errs: dict, int_rate: float) -> dict:
+    """sr25519_verify at B=180 (one flush of the 180 lanes) and SR_WINDOW
+    (the window's chunk), equal to its plain version, beside its bound."""
+    dev = torch.device("cuda")
+    wire, valid = sr25519_batch.prepare_batch(*lane_columns(sr_lanes))
+    check(bool(valid.all()), "the signed sr25519 lanes packed with an invalid lane")
+    ops = sr25519_ops_per_lane()
+    out = {}
+    for batch, plain_runs in ((N_VALIDATORS, 2), (SR_WINDOW, 1)):
+        (w_t,) = to_dev(dev, wire[:, np.arange(batch) % N_VALIDATORS])
+        row = kernel_row(
+            "sr25519_verify", f"B={batch}", lambda: sr25519_batch.verify_kernel(w_t),
+            lambda: sr25519_batch.verify_plain(w_t), plain_runs, (128 + 1) * batch, batch * ops, int_rate, errs, card)
+        check(bool(row.pop("got").all()), f"sr25519_verify rejected a signed lane at B={batch}")
+        if batch == N_VALIDATORS:
+            out = row
+        else:
+            out.update({f"{k}_{SR_WINDOW}": v for k, v in row.items()})
+    print(f"time: sr25519_verify model: {ops} int32 instructions a lane [{card}]")
+    return {"sr25519_verify": out}
+
+
+def time_words_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> dict:
+    """The two word-wire kernels at B=180 (one commit's precommits) and
+    B=16,384 (the window's size), equal to their plain versions, beside
+    their bounds."""
+    dev = torch.device("cuda")
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
+    sigs = [cs.signature for cs in commit.signatures]
+    wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
+    wire24, hi, lo, nblocks, valid2 = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
+    check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
+    ed_ops = ed25519_ops_per_lane()
+    out = {}
+    for batch, plain_runs in ((N_VALIDATORS, 2), (BIG_BATCH, 1)):
+        lanes = np.arange(batch) % N_VALIDATORS
+        w_t, w24_t, hi_t, lo_t, nb_t = to_dev(dev, wire[:, lanes], wire24[:, lanes], hi[:, :, lanes], lo[:, :, lanes],
+                                              nblocks[lanes])
+        hash_ops = int(nblocks[lanes].sum()) * SHA512_WORDS_BLOCK_OPS + batch * SC_REDUCE_OPS
+        rows = {
+            "ed25519_verify_words": kernel_row(
+                "ed25519_verify_words", f"B={batch}", lambda: ed25519_batch.verify_kernel_words(w_t),
+                lambda: ed25519_batch.verify_words_plain(w_t), plain_runs,
+                (128 + 1) * batch, batch * ed_ops, int_rate, errs, card),
+            "ed25519_verify_full_words": kernel_row(
+                "ed25519_verify_full_words", f"B={batch} u32[{hi.shape[0]},16,B] blocks",
+                lambda: ed25519_batch.verify_kernel_full_words(w24_t, hi_t, lo_t, nb_t),
+                lambda: ed25519_batch.verify_full_words_plain(w24_t, hi_t, lo_t, nb_t), plain_runs,
+                (96 + 2 * hi.shape[0] * 64 + 4 + 1) * batch, batch * ed_ops + hash_ops, int_rate, errs, card),
+        }
+        for name, row in rows.items():
+            check(bool(row.pop("got").all()), f"{name} rejected a signed lane at B={batch}")
+            if batch == N_VALIDATORS:
+                out[name] = row
+            else:
+                out[name].update({f"{k}_16384": v for k, v in row.items()})
+    return out
+
+
 def kernel_row(name, label, kernel, plain, plain_runs, nbytes, ops, int_rate, errs, card) -> dict:
     """One kernel at one shape: exactly equal to its plain version, then
     CUDA-event medians of both beside the bound."""
     got = kernel()
     torch.cuda.synchronize()
-    err = max_abs_err(got, plain())
+    plain_out, plain_ms = plain_timed(plain, plain_runs)
+    err = max_abs_err(got, plain_out)
     check(err == 0, f"{name} disagrees with its plain version at {label}")
     errs[name] = max(errs[name], err)
     ms = cuda_ms(kernel, runs=20)
-    plain_ms = cuda_ms(plain, runs=plain_runs, warmup=0)
     b_ms, b_by = bound(nbytes, ops, int_rate)
     print(f"kernels: {name} {label} == plain, max_abs_err {err}")
     print(f"time: {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
@@ -1102,6 +1426,22 @@ def time_secp_end_to_end(svals, sblock_id, scommit, window, card: str) -> None:
           f"= {BIG_BATCH / ms * 1e3:.0f} signatures/s [{card}]")
 
 
+def time_sr_end_to_end(sr_lanes, sr_timing, card: str) -> None:
+    """The sr flush on the card and on "cpu" in turns, its packing alone,
+    and the sr window's signatures per second (from its one timed pass on
+    the main path)."""
+    t = wall_ms_turns({"gpu": lambda: flush(sr_lanes, None), "cpu": lambda: flush(sr_lanes, "cpu")}, runs=3, turns=3)
+    for label, (med, lo, hi) in t.items():
+        print(f"e2e: sr25519 flush {label} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{len(sr_lanes)} lanes, in turns [{card}]")
+    cols = lane_columns(sr_lanes)
+    ms = wall_ms(lambda: sr25519_batch.prepare_batch(*cols), runs=5)
+    print(f"e2e: {'  of which packing (merlin)':34s} p50 {ms:.3f} ms host wall, {len(sr_lanes)} lanes [{card}]")
+    wall, packing = sr_timing["window_s"], sr_timing["packing_s"]
+    print(f"e2e: sr window {SR_WINDOW} lanes, one chunk, one pass {wall * 1e3:.3f} ms host wall "
+          f"(packing {packing * 1e3:.3f} ms) = {SR_WINDOW / wall:.0f} signatures/s [{card}]")
+
+
 def profile_commit(vals, block_id, commit, card: str, calls: int = 10, label: str = "resident, hit") -> None:
     """The device's busy and idle share over back-to-back verify_commit
     calls, from a torch.profiler trace of the card."""
@@ -1139,7 +1479,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}; each library's own: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(built.items())))
+    print(f"phase: build {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         with open(build.log_path(name), encoding="utf-8") as f:
             for line in f:
@@ -1153,7 +1495,11 @@ def main() -> int:
     svals, sblock_id, scommit = make_valset_and_commit(secp, b"cosmoshub-secp-val-%d")
     print(f"main: {N_VALIDATORS} secp256k1 validators signed in {time.perf_counter() - t0:.1f} s (pure Python), "
           f"total power {svals.total_voting_power()}")
+    t0 = time.perf_counter()
+    sr_lanes = make_sr_lanes(commit)
+    print(f"main: {N_VALIDATORS} sr25519 keys signed in {time.perf_counter() - t0:.1f} s (pure Python)")
 
+    t0 = time.perf_counter()
     errs = {
         "ed25519_verify_compact": check_ed25519(dev),
         "ed25519_verify_resident": check_resident(dev, vals, commit),
@@ -1161,16 +1507,21 @@ def main() -> int:
         "sha256_blocks": check_sha256(dev),
         "merkle_level": check_merkle(dev),
         "secp256k1_verify": check_secp(dev),
+        "sr25519_verify": check_sr25519(dev),
     }
+    errs.update(check_words(dev))
+    print(f"phase: kernels {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, per_call = run_main_path(vals, block_id, commit, svals, sblock_id, scommit)
+    launches, per_call, sr_timing = run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes)
     print(f"main: every path in {time.perf_counter() - t0:.1f} s")
+    print(f"phase: main {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     print(f"main: launches {json.dumps(launches)}")
     print(f"main: launches per call {json.dumps(per_call)}")
 
+    t_times = time.perf_counter()
     window, _ = window_items(vals, commit)
     time_end_to_end(vals, block_id, commit, window, card)
     profile_commit(vals, block_id, commit, card)
@@ -1179,8 +1530,15 @@ def main() -> int:
     time_secp_end_to_end(svals, sblock_id, scommit, s_window, card)
     profile_commit(svals, sblock_id, scommit, card, label="secp256k1, add/verify")
     print(f"time: the secp256k1 end-to-end timings took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    time_sr_end_to_end(sr_lanes, sr_timing, card)
+    print(f"time: the sr25519 end-to-end timings took {time.perf_counter() - t0:.1f} s")
     times = time_kernels(vals, commit, card, errs)
     times.update(time_secp_kernel(svals, scommit, card, errs))
+    int_rate = int32_ops_per_s()
+    times.update(time_sr_kernel(sr_lanes, card, errs, int_rate))
+    times.update(time_words_kernels(vals, commit, card, errs, int_rate))
+    print(f"phase: times {time.perf_counter() - t_times:.1f} s")
     record = []
     for name, (source, replaces) in KERNELS.items():
         row = {

@@ -15,10 +15,11 @@ to the serial ``PubKey.verify_signature``. Two backends:
   (``keystore.verify_batch_indexed``, the keys stay on the card); other
   Ed25519 lanes take ``ed25519_batch.verify_batch`` (keys shipped,
   chunked), as the reference's :335-344 does. secp256k1 lanes take
-  ``secp256k1_batch.verify_batch``. A key of any other type (sr25519
-  until it is ported) raises NotImplementedError before anything is
-  launched: no lane is ever verified on the CPU behind the caller's
-  back. Verdicts come back in input order as Python bools.
+  ``secp256k1_batch.verify_batch`` and sr25519 lanes
+  ``sr25519_batch.verify_batch``. A key of any other type raises
+  NotImplementedError before anything is launched: no lane is ever
+  verified on the CPU behind the caller's back. Verdicts come back in
+  input order as Python bools.
 
 ``verify_commit_valset`` is the resident commit route that
 ``ValidatorSet`` takes under ``"gpu"``: the set's keys stay on the card
@@ -38,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto import sr25519 as sr
 
 
 class BatchVerifier:
@@ -83,8 +85,8 @@ class CPUBatchVerifier(_Collecting):
 
 
 class GPUBatchVerifier(_Collecting):
-    """Ed25519 and secp256k1 batches through the CUDA kernels
-    (crypto/cuda/ed25519_batch.py, secp256k1_batch.py).
+    """Ed25519, secp256k1 and sr25519 batches through the CUDA kernels
+    (crypto/cuda/ed25519_batch.py, secp256k1_batch.py, sr25519_batch.py).
 
     ``device`` defaults to the card; ``device="cpu"`` runs the kernel's
     plain torch version, as the CPU tests do. Constructing it for a CUDA
@@ -99,17 +101,17 @@ class GPUBatchVerifier(_Collecting):
             raise RuntimeError("the gpu backend needs a CUDA device; none is available")
 
     def verify(self) -> Tuple[bool, List[bool]]:
-        from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore, secp256k1_batch
+        from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore, secp256k1_batch, sr25519_batch
 
         items = self._take()
         if not items:
             return False, []
-        by_curve: Dict[str, List[int]] = {ed.KEY_TYPE: [], secp.KEY_TYPE: []}
+        by_curve: Dict[str, List[int]] = {ed.KEY_TYPE: [], secp.KEY_TYPE: [], sr.KEY_TYPE: []}
         for i, (pk, _, _) in enumerate(items):
             lanes = by_curve.get(pk.type())
             if lanes is None:
                 raise NotImplementedError(
-                    f"the gpu backend verifies ed25519 and secp256k1, not {pk.type()}"
+                    f"the gpu backend verifies ed25519, secp256k1 and sr25519, not {pk.type()}"
                 )
             lanes.append(i)
         mask = [False] * len(items)
@@ -123,8 +125,10 @@ class GPUBatchVerifier(_Collecting):
                 ok = keystore.verify_batch_indexed(pks, msgs, sigs, self.device)
                 if ok is None:
                     ok = ed25519_batch.verify_batch(pks, msgs, sigs, device=self.device)
-            else:
+            elif curve == secp.KEY_TYPE:
                 ok = secp256k1_batch.verify_batch(pks, msgs, sigs, device=self.device)
+            else:
+                ok = sr25519_batch.verify_batch(pks, msgs, sigs, device=self.device)
             for i, v in zip(lanes, ok):
                 mask[i] = bool(v)
         return all(mask), mask

@@ -10,7 +10,7 @@ to compile, one with a C interface seconds):
 
 A library is built at first use, or again when a source it depends on is
 newer. ``build_all`` starts one ``nvcc`` per stale library, all at once,
-and waits for them. The compiler's ``-Xptxas=-v`` report (registers,
+and waits for them, noting when each one finished. The compiler's ``-Xptxas=-v`` report (registers,
 spills, stack per kernel) is kept beside each library as ``<name>.log``.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises when that is not 0.
@@ -36,6 +36,7 @@ SOURCES: Dict[str, Sequence[str]] = {
     "sha256": ("sha256.cu", "sha256.cuh"),
     "merkle": ("merkle.cu", "sha256.cuh"),
     "secp256k1_verify": ("secp256k1_verify.cu", "fe256k1.cuh"),
+    "sr25519_verify": ("sr25519_verify.cu", "fe25519.cuh"),
 }
 
 NVCC_FLAGS = [
@@ -92,23 +93,21 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name in stale:
         tmp = lib_path(name) + f".{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name][0])]
-        procs[name] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
-            tmp,
-        )
+        with open(log_path(name), "w", encoding="utf-8") as log:
+            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp)
     seconds: Dict[str, float] = {}
     failed: List[str] = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        with open(log_path(name), "w", encoding="utf-8") as f:
-            f.write(out)
-        if proc.returncode != 0:
-            failed.append(f"{name} (rc {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, lib_path(name))
+    while len(seconds) < len(procs):  # each library's own time: poll, do not wait in turn
+        for name, (proc, tmp) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                with open(log_path(name), encoding="utf-8") as f:
+                    failed.append(f"{name} (rc {proc.returncode}):\n{f.read()}")
+                continue
+            os.replace(tmp, lib_path(name))
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds

@@ -1,4 +1,4 @@
-// Cofactorless Ed25519 verification, one thread per signature: three
+// Cofactorless Ed25519 verification, one thread per signature: five
 // kernels over one core.
 //
 // verify_core replaces cometbft_tpu/crypto/tpu/ed25519_batch.py::
@@ -24,10 +24,21 @@
 //   in registers (the padding of sha512.py::blocks_from_bytes, :202),
 //   compresses only its live blocks (sha512.cuh), reduces mod L exactly
 //   (sc25519.cuh) and enters verify_core.
+// * ed25519_verify_words replaces _verify_core (verify_kernel, :328-335),
+//   the u32 word wire (CBFT_TPU_WIRE=words): u32[32, B] row-major (word j
+//   of lane b at j * B + b), rows 0:8 A, 8:16 R, 16:24 S, 24:32 h, all
+//   little-endian words.
+// * ed25519_verify_full_words replaces verify_full_kernel (:351): u32[24,
+//   B] words of A, R, S, and R || A || M padded into SHA-512 blocks on the
+//   host, as big-endian hi and lo halves u32[NB, 16, B] of each 64-bit
+//   word, with int32[B] live block counts (clamped to [0, NB], as the
+//   reference's mask over its NB blocks does). It compresses the live
+//   blocks, reduces mod L and enters verify_core.
 //
 // verify_core is compiled once, not inlined into each kernel: it holds
 // nearly all of a lane's work, so one call per lane costs nothing that
-// shows, and three inlined copies more than doubled the build time.
+// shows, and three inlined copies more than doubled the build time. The
+// two word kernels are prologues only.
 //
 // Output: u8[B], 1 where encode([s]B + [h](-A)) equals R byte for byte
 // and A decompressed. The host ANDs it with its validity mask (s < L,
@@ -78,32 +89,6 @@ __constant__ uint32_t K_BY[10] = {
     0x0666666, 0x3333333, 0x0cccccc, 0x2666666, 0x1999999};
 
 #define NUM_DIGITS 127
-
-__device__ __forceinline__ void load_words(uint32_t w[8], const uint8_t *wire,
-                                           int row0, int B, int b) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint8_t *p = wire + (size_t)(row0 + 4 * j) * B + b;
-    w[j] = (uint32_t)p[0] | ((uint32_t)p[(size_t)B] << 8) |
-           ((uint32_t)p[2 * (size_t)B] << 16) | ((uint32_t)p[3 * (size_t)B] << 24);
-  }
-}
-
-__device__ __forceinline__ void fe_const(fe &out, const uint32_t *c) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) out.v[i] = c[i];
-}
-
-__device__ __forceinline__ void fe_zero(fe &out) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) out.v[i] = 0;
-}
-
-__device__ __forceinline__ void fe_one(fe &out) {
-  out.v[0] = 1;
-#pragma unroll
-  for (int i = 1; i < 10; ++i) out.v[i] = 0;
-}
 
 // y (low 255 bits of A), sign bit -> x with ref10 semantics; false when
 // x^2 = (y^2 - 1) / (d y^2 + 1) has no root.
@@ -340,6 +325,58 @@ ed25519_verify_full_compact_kernel(const uint8_t *__restrict__ wire,
   out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
 }
 
+// Eight words of lane b from a row-major u32 word wire, starting at row row0.
+__device__ __forceinline__ void load_word_rows(uint32_t w[8],
+                                               const uint32_t *__restrict__ wire,
+                                               int row0, int B, int b) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = wire[(size_t)(row0 + j) * B + b];
+}
+
+__global__ void __launch_bounds__(128)
+ed25519_verify_words_kernel(const uint32_t *__restrict__ wire,
+                            uint8_t *__restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  uint32_t aw[8], rw[8], sw[8], hw[8];
+  load_word_rows(aw, wire, 0, B, b);
+  load_word_rows(rw, wire, 8, B, b);
+  load_word_rows(sw, wire, 16, B, b);
+  load_word_rows(hw, wire, 24, B, b);
+  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(128)
+ed25519_verify_full_words_kernel(const uint32_t *__restrict__ wire,
+                                 const uint32_t *__restrict__ msg_hi,
+                                 const uint32_t *__restrict__ msg_lo, int NB,
+                                 const int32_t *__restrict__ nblocks,
+                                 uint8_t *__restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  uint32_t aw[8], rw[8], sw[8], hw[8];
+  load_word_rows(aw, wire, 0, B, b);
+  load_word_rows(rw, wire, 8, B, b);
+  load_word_rows(sw, wire, 16, B, b);
+  const int n_live = min(max(nblocks[b], 0), NB);
+  uint64_t st[8];
+  sha512_init(st);
+#pragma unroll 1
+  for (int blk = 0; blk < n_live; ++blk) {
+    uint64_t w[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const size_t at = ((size_t)blk * 16 + j) * B + b;
+      w[j] = ((uint64_t)msg_hi[at] << 32) | msg_lo[at];
+    }
+    sha512_compress(st, w);
+  }
+  sc_reduce_digest(hw, st);
+  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
+}
+
 extern "C" int cbt_ed25519_verify_compact(const void *wire, void *out, int B,
                                           void *stream) {
   const int threads = 128;
@@ -368,5 +405,25 @@ extern "C" int cbt_ed25519_verify_full_compact(const void *wire,
                                        (cudaStream_t)stream>>>(
       (const uint8_t *)wire, (const uint8_t *)msg, MP, (const int32_t *)mlen,
       (uint8_t *)out, B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cbt_ed25519_verify_words(const void *wire, void *out, int B,
+                                        void *stream) {
+  ed25519_verify_words_kernel<<<grid_for(B), 128, 0, (cudaStream_t)stream>>>(
+      (const uint32_t *)wire, (uint8_t *)out, B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cbt_ed25519_verify_full_words(const void *wire,
+                                             const void *msg_hi,
+                                             const void *msg_lo, int NB,
+                                             const void *nblocks, void *out,
+                                             int B, void *stream) {
+  ed25519_verify_full_words_kernel<<<grid_for(B), 128, 0,
+                                     (cudaStream_t)stream>>>(
+      (const uint32_t *)wire, (const uint32_t *)msg_hi,
+      (const uint32_t *)msg_lo, NB, (const int32_t *)nblocks, (uint8_t *)out,
+      B);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,33 @@ struct fe {
 #define FE_2P_ODD 0x3FFFFFEu   // 2 * (2^25 - 1)
 #define FE_2P_0 0x7FFFFDAu     // 2 * (2^26 - 19)
 
+FE_FN void fe_const(fe &out, const uint32_t *c) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.v[i] = c[i];
+}
+
+FE_FN void fe_zero(fe &out) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.v[i] = 0;
+}
+
+FE_FN void fe_one(fe &out) {
+  out.v[0] = 1;
+#pragma unroll
+  for (int i = 1; i < 10; ++i) out.v[i] = 0;
+}
+
+// Eight little-endian u32 words of lane b from a byte-major wire u8[rows, B]
+// (row r of lane b at r * B + b), starting at row row0.
+FE_FN void load_words(uint32_t w[8], const uint8_t *wire, int row0, int B, int b) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint8_t *p = wire + (size_t)(row0 + 4 * j) * B + b;
+    w[j] = (uint32_t)p[0] | ((uint32_t)p[(size_t)B] << 8) |
+           ((uint32_t)p[2 * (size_t)B] << 16) | ((uint32_t)p[3 * (size_t)B] << 24);
+  }
+}
+
 // One sequential floor-carry pass; the carry out of limb 9 folds back as
 // 19 (2^255 = 19 mod p), then limb 0 carries once more into limb 1.
 FE_FN void fe_carry64(fe &out, uint64_t h[10]) {

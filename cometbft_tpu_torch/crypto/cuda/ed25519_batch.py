@@ -27,6 +27,15 @@ and ``verify_kernel_full_compact`` with h = SHA-512(R‖A‖M) mod L computed
 on the card. Each has a plain torch version beside it. The key-store
 routes hash on the host whatever ``CBFT_TPU_HASH`` says, as the
 reference's do; only ``verify_batch`` (keys shipped) reads it.
+
+``verify_batch`` also carries the reference's u32 word wire
+(``CBFT_TPU_WIRE=words``, ``wire_format`` :662): ``verify_kernel_words``
+(reference ``_verify_core`` :328, ``verify_kernel`` :335) takes
+u32[32, B] little-endian words of A, R, S and h, and
+``verify_kernel_full_words`` (reference ``verify_full_kernel`` :351) takes
+u32[24, B] words of A, R and S with R ‖ A ‖ M padded into SHA-512 blocks
+on the host, as big-endian hi and lo halves [n_blocks, 16, B] and a live
+block count a lane. Both enter the same core.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ MAX_CHUNK = 8192  # per-curve default chunk cap; CBFT_TPU_MAX_CHUNK overrides
 LAUNCHES = 0  # ed25519_verify_compact
 RESIDENT_LAUNCHES = 0  # ed25519_verify_resident
 FULL_LAUNCHES = 0  # ed25519_verify_full_compact
+WORDS_LAUNCHES = 0  # ed25519_verify_words
+FULL_WORDS_LAUNCHES = 0  # ed25519_verify_full_words
 
 
 # --- host packing (reference ed25519_batch.py:444-583) ----------------------
@@ -152,6 +163,43 @@ def prepare_batch_device_hash_compact(
     return wire, msg, mlen, valid
 
 
+def _as_words(rows: np.ndarray) -> np.ndarray:
+    """Byte-major rows u8[4k,B] → u32[k,B] little-endian words: the word
+    wire carries the compact wire's bytes. A copy, with strides whole
+    words even when B is 1 (a view keeps a byte stride on that axis)."""
+    return np.ascontiguousarray(rows.T).view("<u4").T.copy()
+
+
+def prepare_batch(
+    pub_keys: Sequence[bytes],
+    msgs: Sequence[bytes],
+    sigs: Sequence[bytes],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The word wire (reference :521) → (wire u32[32,B], valid): rows 0:8
+    A, 8:16 R, 16:24 S, 24:32 h, little-endian words."""
+    wire, valid = prepare_batch_compact(pub_keys, msgs, sigs)
+    return _as_words(wire), valid
+
+
+def prepare_batch_device_hash(
+    pub_keys: Sequence[bytes],
+    msgs: Sequence[bytes],
+    sigs: Sequence[bytes],
+):
+    """The word wire with h computed on the card (reference :582) →
+    (wire u32[24,B] rows A, R, S; msg_hi, msg_lo u32[n_blocks,16,B], the
+    big-endian halves of R ‖ A ‖ M padded into SHA-512 blocks on the host;
+    nblocks int32[B]; valid)."""
+    pk_arr, sig_arr, valid = _parse_inputs(pub_keys, sigs)
+    hash_msgs = [
+        sig_arr[i, :32].tobytes() + pk_arr[i].tobytes() + bytes(msgs[i])
+        for i in range(len(pub_keys))
+    ]
+    msg_hi, msg_lo, nblocks = sha512.pad_ragged_np(hash_msgs)
+    wire = _as_words(pack_compact_rows(pk_arr, sig_arr[:, :32], sig_arr[:, 32:]))
+    return wire, msg_hi, msg_lo, nblocks, valid
+
+
 def _parse_lane_sigs(msgs, sigs) -> Tuple[np.ndarray, np.ndarray]:
     """→ (sig_arr u8[B,64], valid): msgs[i] or sigs[i] None marks an
     absent lane; absent, wrong-length and s ≥ L lanes are zero and
@@ -199,6 +247,15 @@ def hash_route(n: int) -> str:
     host. Either way the verification runs on the card."""
     mode = hash_mode()
     return "host" if mode == "auto" else mode
+
+
+def wire_format() -> str:
+    """CBFT_TPU_WIRE: ``compact`` (the default: raw byte rows) or ``words``
+    (the u32 word wire)."""
+    fmt = os.environ.get("CBFT_TPU_WIRE", "compact")
+    if fmt not in ("compact", "words"):
+        raise ValueError(f"unknown CBFT_TPU_WIRE={fmt!r}; choose from ['compact', 'words']")
+    return fmt
 
 
 # --- point layer (reference :119-213), extended coordinates, a = -1 --------
@@ -330,19 +387,13 @@ def _base_points(device) -> List[Point]:
 
 
 
-def _verify_words(a_w, r_w, s_w, h_w) -> torch.Tensor:
-    """bool[B]: encode([s]B + [h](−A)) == R and A decompresses, from
-    int64[8,B] little-endian u32 words of A, R, s and h. The torch twin
-    of ``verify_core`` in csrc/ed25519_verify.cu."""
-    dev = a_w.device
-    batch = a_w.shape[1]
-    ay = unpack_fe(a_w)
-    a_sign = (a_w[7] >> 31) & 1
-    x, ok = decompress(ay, a_sign)
-    nx = fe.neg(x)
-    one = fe.const(1, dev).expand(fe.NUM_LIMBS, batch)
-    neg_a: Point = (nx, ay, one, fe.mul(nx, ay))
-
+def joint_straus(neg_a: Point, s_w: torch.Tensor, h_w: torch.Tensor) -> Point:
+    """[s]B + [h](−A) from −A and the int64[8,B] little-endian u32 words
+    of s and h: the 16-entry table ds·B + dh·(−A) in cached form, then 127
+    radix-4 steps of two doublings and one addition, digits most
+    significant first. Ed25519 and sr25519 verify through it."""
+    dev = neg_a[0].device
+    batch = neg_a[0].shape[1]
     # entry[ds + 4·dh] = ds·B + dh·(−A), cached
     a2 = point_dbl(neg_a)
     a3 = point_add(a2, neg_a)
@@ -371,8 +422,21 @@ def _verify_words(a_w, r_w, s_w, h_w) -> torch.Tensor:
         idx = s_dig[i] + 4 * h_dig[i]
         sel = table[idx, :, :, lanes]  # [B,4,10]
         acc = add_cached(acc, tuple(sel[:, k].T for k in range(4)))
+    return acc
 
-    rx, ry, rz, _ = acc
+
+def _verify_words(a_w, r_w, s_w, h_w) -> torch.Tensor:
+    """bool[B]: encode([s]B + [h](−A)) == R and A decompresses, from
+    int64[8,B] little-endian u32 words of A, R, s and h. The torch twin
+    of ``verify_core`` in csrc/ed25519_verify.cu."""
+    batch = a_w.shape[1]
+    ay = unpack_fe(a_w)
+    a_sign = (a_w[7] >> 31) & 1
+    x, ok = decompress(ay, a_sign)
+    nx = fe.neg(x)
+    one = fe.const(1, a_w.device).expand(fe.NUM_LIMBS, batch)
+    neg_a: Point = (nx, ay, one, fe.mul(nx, ay))
+    rx, ry, rz, _ = joint_straus(neg_a, s_w, h_w)
     zinv = fe.invert(rz)
     enc = encode(fe.mul(rx, zinv), fe.mul(ry, zinv))
     return (enc == r_w).all(dim=0) & ok
@@ -425,6 +489,32 @@ def verify_full_compact_plain(wire: torch.Tensor, msg: torch.Tensor, mlen: torch
     return _verify_words(w[0:8], w[8:16], w[16:24], h_w)
 
 
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words (or int32 holding their bits) → int64 values."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def verify_words_plain(wire: torch.Tensor) -> torch.Tensor:
+    """bool[B] from the word wire u32[32,B] (rows A, R, S, h). The torch
+    twin of ``ed25519_verify_words``."""
+    w = _u32(wire)
+    return _verify_words(w[0:8], w[8:16], w[16:24], w[24:32])
+
+
+def verify_full_words_plain(
+    wire: torch.Tensor, msg_hi: torch.Tensor, msg_lo: torch.Tensor, nblocks: torch.Tensor
+) -> torch.Tensor:
+    """bool[B] from the word wire u32[24,B] (rows A, R, S) and R ‖ A ‖ M's
+    padded SHA-512 blocks (hi and lo halves u32[n_blocks,16,B], live
+    counts int32[B]), h computed from them. The torch twin of
+    ``ed25519_verify_full_words``."""
+    w = _u32(wire)
+    blocks = (_u32(msg_hi) << 32) | _u32(msg_lo)
+    digest = sha512.digest_bytes(sha512.sha512_blocks_plain(blocks, nblocks.to(torch.int64)))
+    h_w = scalar.to_words(scalar.sc_reduce(scalar.digest_to_limbs(digest)))
+    return _verify_words(w[0:8], w[8:16], w[16:24], h_w)
+
+
 # --- the kernels' wrappers ----------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -435,6 +525,10 @@ _SIGNATURES = {
     "cbt_ed25519_verify_resident": [_P, _I, _P, _P, _P, _I, _P],
     # wire, msg, MP, mlen, out, B, stream
     "cbt_ed25519_verify_full_compact": [_P, _P, _I, _P, _P, _I, _P],
+    # words, out, B, stream
+    "cbt_ed25519_verify_words": [_P, _P, _I, _P],
+    # words, msg_hi, msg_lo, n_blocks, nblocks, out, B, stream
+    "cbt_ed25519_verify_full_words": [_P, _P, _P, _I, _P, _P, _I, _P],
 }
 
 
@@ -469,6 +563,12 @@ def _require_msg(msg: torch.Tensor, mlen: torch.Tensor, batch: int, device) -> N
     build.require_cuda_tensor(mlen, "message lengths", torch.int32, 1)
     if mlen.shape[0] != batch or mlen.device != device:
         raise ValueError(f"message lengths: expected [{batch}] on {device}, got {tuple(mlen.shape)}")
+
+
+def _require_shape(t: torch.Tensor, what: str, dtype, shape: Tuple[int, ...], device) -> None:
+    build.require_cuda_tensor(t, what, dtype, len(shape))
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{what}: expected {list(shape)} on {device}, got {tuple(t.shape)} on {t.device}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -545,6 +645,55 @@ def verify_kernel_full_compact(wire: torch.Tensor, msg: torch.Tensor, mlen: torc
     return out.bool()
 
 
+def verify_kernel_words(wire: torch.Tensor) -> torch.Tensor:
+    """bool[B] from the word wire u32[32,B].
+
+    On a CUDA tensor this launches ``ed25519_verify_words`` (one thread
+    per signature) on the current stream, or raises; a CPU tensor runs
+    ``verify_words_plain``."""
+    global WORDS_LAUNCHES
+    if wire.device.type == "cpu":
+        return verify_words_plain(wire)
+    batch = wire.shape[1] if wire.dim() == 2 else -1
+    _require_shape(wire, "ed25519 word wire", torch.uint32, (32, batch), wire.device)
+    out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
+    if batch == 0:
+        return out.bool()
+    rc = _lib().cbt_ed25519_verify_words(wire.data_ptr(), out.data_ptr(), batch, build.stream_ptr(wire.device))
+    build.check(rc, "ed25519_verify_words")
+    WORDS_LAUNCHES += 1
+    return out.bool()
+
+
+def verify_kernel_full_words(
+    wire: torch.Tensor, msg_hi: torch.Tensor, msg_lo: torch.Tensor, nblocks: torch.Tensor
+) -> torch.Tensor:
+    """bool[B] with h computed on the card from pre-padded blocks (wire
+    u32[24,B], msg_hi and msg_lo u32[n_blocks,16,B], nblocks int32[B]).
+    On CUDA tensors this launches
+    ``ed25519_verify_full_words``, or raises; CPU tensors run
+    ``verify_full_words_plain``."""
+    global FULL_WORDS_LAUNCHES
+    if wire.device.type == "cpu":
+        return verify_full_words_plain(wire, msg_hi, msg_lo, nblocks)
+    batch = wire.shape[1] if wire.dim() == 2 else -1
+    _require_shape(wire, "A‖R‖S words", torch.uint32, (24, batch), wire.device)
+    n_blocks = msg_hi.shape[0] if msg_hi.dim() == 3 else -1
+    _require_shape(msg_hi, "message blocks (hi)", torch.uint32, (n_blocks, 16, batch), wire.device)
+    _require_shape(msg_lo, "message blocks (lo)", torch.uint32, (n_blocks, 16, batch), wire.device)
+    _require_shape(nblocks, "live block counts", torch.int32, (batch,), wire.device)
+    out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
+    if batch == 0:
+        return out.bool()
+    rc = _lib().cbt_ed25519_verify_full_words(
+        wire.data_ptr(), msg_hi.data_ptr(), msg_lo.data_ptr(), n_blocks, nblocks.data_ptr(),
+        out.data_ptr(), batch, build.stream_ptr(wire.device),
+    )
+    build.check(rc, "ed25519_verify_full_words")
+    FULL_WORDS_LAUNCHES += 1
+    return out.bool()
+
+
 # --- entry points -----------------------------------------------------------
 
 
@@ -555,17 +704,21 @@ def verify_batch(
     device="cuda",
 ) -> List[bool]:
     """Per-signature verdicts on ``device``, the keys shipped with each
-    lane (reference :731): ``hash_route`` picks the host-hash compact wire
-    or the device-hash wire, and ``mesh.dispatch_batch`` runs the batch
-    in chunks, packing chunk i+1 while the card verifies chunk i. The
-    result is ANDed with the packing's validity mask."""
+    lane (reference :731): ``wire_format`` picks the compact or the word
+    wire and ``hash_route`` where h is computed, one of four kernels as
+    the reference's :747-758 does, and ``mesh.dispatch_batch`` runs the
+    batch in chunks, packing chunk i+1 while the card verifies chunk i.
+    The result is ANDed with the packing's validity mask."""
     n = len(pub_keys)
     if n == 0:
         return []
+    compact = wire_format() == "compact"
     if hash_route(n) == "device":
-        prepare, kernel = prepare_batch_device_hash_compact, verify_kernel_full_compact
+        prepare = prepare_batch_device_hash_compact if compact else prepare_batch_device_hash
+        kernel = verify_kernel_full_compact if compact else verify_kernel_full_words
     else:
-        prepare, kernel = prepare_batch_compact, verify_kernel_compact
+        prepare = prepare_batch_compact if compact else prepare_batch
+        kernel = verify_kernel_compact if compact else verify_kernel_words
     valid_full = np.ones(n, bool)
 
     def chunk(start: int, end: int):

@@ -1,4 +1,5 @@
-"""Ed25519 and secp256k1 vectors for the verify contracts, made from a seed.
+"""Ed25519, secp256k1 and sr25519 vectors for the verify contracts, made
+from a seed.
 
 Each case is (label, public key, message, signature). The Ed25519 cases
 cover what the reference's contract names
@@ -8,7 +9,10 @@ s >= L; a non-canonical A; identity and small-order keys; -0; a
 non-canonical R; a key that does not decompress; and a mixed batch.
 ``secp256k1_cases`` covers the secp256k1 contract
 (cometbft_tpu/crypto/tpu/secp256k1_batch.py:19-31), and adds wire-level
-lanes for branches no signature reaches. ``chip_smoke.py`` holds the
+lanes for branches no signature reaches. ``sr25519_cases`` covers the
+sr25519 contract (cometbft_tpu/crypto/tpu/sr25519_batch.py:19-23) with
+every check of the CPU verifier's order (crypto/sr25519.py:186-210) and
+each way a ristretto255 decode fails. ``chip_smoke.py`` holds the
 kernels against their plain versions and the CPU verifiers on them; the
 CPU tests hold the plain versions against the reference package.
 """
@@ -22,6 +26,7 @@ import numpy as np
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
 from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto import sr25519 as sr
 
 Case = Tuple[str, bytes, bytes, bytes]
 # (label, qx, r, u1, u2, flags, verdict): one lane of the secp256k1 wire
@@ -243,3 +248,103 @@ def secp256k1_wire(cases: List[WireCase]) -> Tuple[np.ndarray, np.ndarray, List[
     rows = [b"".join(v.to_bytes(32, "little") for v in c[1:5]) for c in cases]
     wire = np.frombuffer(b"".join(rows), np.uint8).reshape(len(cases), 128).T.copy()
     return wire, np.array([c[5] for c in cases], np.int32), [c[6] for c in cases]
+
+
+# --- sr25519 ----------------------------------------------------------------------
+
+
+def _sr_decode_failure(s_enc: int) -> str:
+    """Why the ristretto255 decode of a canonical, even encoding fails
+    ("" when it decodes), following crypto/sr25519.py:_decode."""
+    p = sr.P
+    ss = s_enc * s_enc % p
+    u1, u2 = (1 - ss) % p, (1 + ss) % p
+    u2_sqr = u2 * u2 % p
+    v = ((-(sr.D * u1 % p * u1)) % p - u2_sqr) % p
+    was_square, invsqrt = sr._sqrt_ratio_m1(1, v * u2_sqr % p)
+    den_x = invsqrt * u2 % p
+    x = 2 * s_enc * den_x % p
+    x = p - x if sr._is_negative(x) else x
+    y = u1 * (invsqrt * den_x % p * v % p) % p
+    if not was_square:
+        return "not_square"
+    if sr._is_negative(x * y % p):
+        return "negative_t"
+    return "y_zero" if y == 0 else ""
+
+
+def _sr_encodings(rng) -> dict:
+    """One even encoding below p for each way a decode fails, searched
+    from the seed, and y = 0 (s = p − 1)."""
+    found = {"y_zero": sr.P - 1}
+    while len(found) < 3:
+        enc = int.from_bytes(rng.bytes(32), "little") % sr.P & ~1
+        why = _sr_decode_failure(enc)
+        if why:
+            found.setdefault(why, enc)
+    return {k: v.to_bytes(32, "little") for k, v in found.items()}
+
+
+def _sr_sig(r_enc: bytes, s: int, marker: bool = True) -> bytes:
+    return r_enc + (s | ((1 << 255) if marker else 0)).to_bytes(32, "little")
+
+
+def sr25519_cases(seed: int = 19) -> List[Case]:
+    """Valid signatures; a corrupted R, a corrupted s and a corrupted
+    message; the wrong key; the format bit cleared; s + L; A or R at or
+    above p, odd ("negative"), and even and canonical but failing to
+    decode (not a square, t negative, y = 0); the identity (all zeros) as
+    A, with a signature that verifies against it and one that does not;
+    keys of 31 and 33 bytes and signatures of 63 and 65 bytes."""
+    rng = np.random.default_rng(seed)
+    keys = [sr.gen_priv_key_from_secret(b"sr-edge-%d" % i) for i in range(4)]
+    pks = [k.pub_key().bytes() for k in keys]
+    msgs = [rng.bytes(int(rng.integers(0, 120))) for _ in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    r0, s0 = sigs[0][:32], int.from_bytes(sigs[0][32:], "little") & ((1 << 255) - 1)
+    p = sr.P
+    above_p = (p + 1).to_bytes(32, "little")  # even, >= p
+    ident = bytes(32)
+    crafted_s = 4242
+    crafted = _sr_sig(sr._encode(sr._mul(crafted_s, sr._BASE)), crafted_s)
+    cases: List[Case] = [("valid", pk, m, sg) for pk, m, sg in zip(pks, msgs, sigs)]
+    cases += [
+        ("valid_empty_msg", pks[1], b"", keys[1].sign(b"")),
+        ("corrupt_r", pks[0], msgs[0], _flip(sigs[0], 5, 0x10)),
+        ("corrupt_s", pks[1], msgs[1], _flip(sigs[1], 40, 0x01)),
+        ("corrupt_msg", pks[2], _flip(msgs[2] + b"!", 0, 0x01), sigs[2]),
+        ("wrong_key", pks[3], msgs[0], sigs[0]),
+        ("format_bit_clear", pks[0], msgs[0], _sr_sig(r0, s0, marker=False)),
+        ("s_plus_l", pks[0], msgs[0], _sr_sig(r0, s0 + sr.L)),
+        ("a_above_p", above_p, msgs[0], sigs[0]),
+        ("r_above_p", pks[0], msgs[0], _sr_sig(above_p, s0)),
+        ("a_odd", _flip(pks[0], 0, 0x01), msgs[0], sigs[0]),
+        ("r_odd", pks[0], msgs[0], _flip(sigs[0], 0, 0x01)),
+        ("identity_key", ident, b"any message", crafted),
+        ("identity_key_wrong_sig", ident, msgs[0], sigs[0]),
+        ("key_31_bytes", pks[0][:31], msgs[0], sigs[0]),
+        ("key_33_bytes", pks[0] + b"\x00", msgs[0], sigs[0]),
+        ("sig_63_bytes", pks[0], msgs[0], sigs[0][:63]),
+        ("sig_65_bytes", pks[0], msgs[0], sigs[0] + b"\x80"),
+    ]
+    for why, enc in sorted(_sr_encodings(rng).items()):
+        cases.append((f"a_{why}", enc, msgs[0], sigs[0]))
+        cases.append((f"r_{why}", pks[0], msgs[0], _sr_sig(enc, s0)))
+    return cases
+
+
+def sr25519_mixed(n: int = 40, seed: int = 23) -> List[Case]:
+    """n sr25519 signatures over random messages; every third has one bit
+    flipped."""
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+    for i in range(n):
+        k = sr.gen_priv_key_from_secret(b"sr-mixed-%d" % i)
+        m = rng.bytes(int(rng.integers(0, 200)))
+        s = k.sign(m)
+        label = "valid"
+        if i % 3 == 0:
+            s = _flip(s, int(rng.integers(0, 64)), 1 << int(rng.integers(0, 8)))
+            label = "flipped"
+        out.append((label, k.pub_key().bytes(), m, s))
+    return out

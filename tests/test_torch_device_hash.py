@@ -12,7 +12,16 @@
   construction; the h it computes is hashlib's h mod L;
 * the route: ``verify_batch(device="cpu")`` under ``CBFT_TPU_HASH=device``
   runs the device-hash kernel's plain version and gives the ``"cpu"``
-  backend's verdicts; ``hash_mode`` rejects an unknown value.
+  backend's verdicts; ``hash_mode`` rejects an unknown value;
+* the word wire's device-hash form: the port's
+  ``prepare_batch_device_hash`` (u32[24, B] words, the host-padded
+  SHA-512 blocks as hi and lo planes, the live block counts) equals the
+  reference's byte for byte; ``verify_full_words_plain`` (the CPU twin of
+  ``ed25519_verify_full_words``) gives the verdicts of the reference's
+  jitted ``verify_full_kernel`` (called directly, at 64 lanes and three
+  blocks) and of the CPU verifiers, the torsioned lanes included; under
+  ``CBFT_TPU_WIRE=words`` and ``CBFT_TPU_HASH=device`` ``verify_batch``
+  takes it.
 
 Verdicts and bytes are compared with exact equality. One test runs every
 check (see tests/test_torch_field.py for why each of these files holds
@@ -37,6 +46,7 @@ torch.set_num_threads(1)
 
 _REF_LANES = 9  # tests/test_wire_format.py::test_device_hash_compact_parity
 _REF_MP = 320  # its message plane: messages of up to 200 bytes, 3 blocks
+_REF_WORD_LANES, _REF_BLOCKS = 64, 3  # the word-wire kernel's one compiled shape
 
 
 def _columns(cases):
@@ -159,9 +169,47 @@ def check_device_hash_route(monkeypatch):
         ed25519_batch.hash_mode()
 
 
+def check_full_words(monkeypatch):
+    cases = vectors.device_hash_cases() + vectors.edge_cases() + _nine_lanes()
+    pks, msgs, sigs = _columns(cases)
+    got = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
+    want = ref_batch.prepare_batch_device_hash(pks, msgs, sigs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes()
+    wire, hi, lo, nblocks, valid = got
+    assert hi.dtype == np.uint32 and hi.shape[0] <= _REF_BLOCKS and len(cases) <= _REF_WORD_LANES
+    port = ed25519_batch.verify_full_words_plain(
+        torch.from_numpy(wire), torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(nblocks)
+    ).numpy()
+    n = len(cases)
+    w = np.zeros((24, _REF_WORD_LANES), np.uint32)
+    h = np.zeros((_REF_BLOCKS, 16, _REF_WORD_LANES), np.uint32)
+    lw = np.zeros_like(h)
+    nb = np.zeros(_REF_WORD_LANES, np.int32)
+    w[:, :n], h[: hi.shape[0], :, :n], lw[: lo.shape[0], :, :n], nb[:n] = wire, hi, lo, nblocks
+    ref = np.asarray(ref_batch.verify_full_kernel(jnp.asarray(w), jnp.asarray(h), jnp.asarray(lw), jnp.asarray(nb)))
+    assert port.tolist() == ref[:n].tolist()
+    cpu = [purepy.ed25519_verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    assert (port & valid).tolist() == cpu
+    assert cpu == [ref_ed.PubKeyEd25519(p).verify_signature(m, s) for p, m, s in zip(pks, msgs, sigs)]
+    labels = {c[0]: bool(v) for c, v in zip(cases, port)}
+    assert labels["torsioned_h0"] and not labels["torsioned_h_nonzero"]
+    # the route: words and the device hash take the full word kernel
+    calls = []
+    real = ed25519_batch.verify_kernel_full_words
+    monkeypatch.setattr(ed25519_batch, "verify_kernel_full_words", lambda *a: calls.append(a[1].shape) or real(*a))
+    monkeypatch.setenv("CBFT_TPU_WIRE", "words")
+    monkeypatch.setenv("CBFT_TPU_HASH", "device")
+    assert ed25519_batch.verify_batch(pks, msgs, sigs, device="cpu") == cpu
+    assert calls == [hi.shape]
+
+
 def test_device_hash_matches_reference(monkeypatch):
     check_packing_matches_reference()
     check_torsioned_vectors_need_exact_h()
     check_verdicts_match_reference()
     check_challenge_matches_hashlib()
-    check_device_hash_route(monkeypatch)
+    with monkeypatch.context() as m:
+        check_device_hash_route(m)
+    with monkeypatch.context() as m:
+        check_full_words(m)

@@ -9,7 +9,14 @@
   crypto/ed25519.py verify, on the contract's edge cases and a mixed batch
   of 33;
 * keys, signatures and the limb constants written into the CUDA source
-  equal their reference or their definition.
+  equal their reference or their definition;
+* the word wire (``CBFT_TPU_WIRE=words``): the port's ``prepare_batch``
+  equals the reference's u32[32, B] byte for byte; ``verify_words_plain``
+  (the CPU twin of ``ed25519_verify_words``) gives the verdicts of the
+  reference's jitted ``verify_kernel`` (called directly, at 64 lanes) and
+  of the CPU verifiers; ``verify_batch`` under ``CBFT_TPU_WIRE=words``
+  takes it; ``wire_format`` defaults to ``compact`` and rejects an unknown
+  value.
 
 Verdicts and bytes are compared with exact equality. Inputs are made from
 fixed seeds (cometbft_tpu_torch/crypto/cuda/vectors.py). One test runs
@@ -20,7 +27,9 @@ holds one test).
 import os
 import re
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cometbft_tpu.crypto import ed25519 as ref_ed
@@ -144,7 +153,47 @@ def check_cuda_constants():
         assert limbs == fe.int_to_limbs(value), name
 
 
-def test_ed25519_matches_reference():
+def check_word_wire(monkeypatch):
+    cases = vectors.edge_cases() + vectors.mixed_batch()
+    pks, msgs, sigs = _columns(cases)
+    pks = pks + [b"\x01" * 31, pks[0]]
+    msgs = msgs + [b"a", b"b"]
+    sigs = sigs + [sigs[0], sigs[0][:63]]
+    wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
+    ref_wire, ref_valid = ref_batch.prepare_batch(pks, msgs, sigs)
+    assert wire.dtype == ref_wire.dtype == np.uint32
+    assert wire.shape == ref_wire.shape == (32, len(pks))
+    assert wire.tobytes() == ref_wire.tobytes() and valid.tolist() == ref_valid.tolist()
+    # the words are the compact wire's bytes; int32 holding their bits reads the same
+    compact, _ = ed25519_batch.prepare_batch_compact(pks, msgs, sigs)
+    assert np.ascontiguousarray(compact.T).view("<u4").T.tobytes() == wire.tobytes()
+    port = ed25519_batch.verify_words_plain(torch.from_numpy(wire)).numpy()
+    assert port.tolist() == ed25519_batch.verify_words_plain(torch.from_numpy(wire.view(np.int32))).tolist()
+    padded = np.zeros((32, _REF_LANES), np.uint32)
+    padded[:, : len(pks)] = wire
+    ref = np.asarray(ref_batch.verify_kernel(jnp.asarray(padded)))[: len(pks)]
+    assert port.tolist() == ref.tolist()
+    n = len(cases)
+    cpu = [purepy.ed25519_verify(p, m, s) for p, m, s in zip(pks[:n], msgs[:n], sigs[:n])]
+    assert (port & valid).tolist() == cpu + [False, False]
+    assert cpu == [ref_ed.PubKeyEd25519(p).verify_signature(m, s) for p, m, s in zip(pks[:n], msgs[:n], sigs[:n])]
+    # the route: CBFT_TPU_WIRE=words with the host hash takes the word kernel
+    calls = []
+    real = ed25519_batch.verify_kernel_words
+    monkeypatch.setattr(ed25519_batch, "verify_kernel_words", lambda w: calls.append(w.dtype) or real(w))
+    monkeypatch.delenv("CBFT_TPU_WIRE", raising=False)
+    assert ed25519_batch.wire_format() == "compact"
+    monkeypatch.setenv("CBFT_TPU_HASH", "host")
+    monkeypatch.setenv("CBFT_TPU_WIRE", "words")
+    assert ed25519_batch.verify_batch(pks[:n], msgs[:n], sigs[:n], device="cpu") == cpu
+    assert ed25519_batch.verify_batch(pks[:1], msgs[:1], sigs[:1], device="cpu") == cpu[:1]  # one lane
+    assert calls == [torch.uint32, torch.uint32]
+    monkeypatch.setenv("CBFT_TPU_WIRE", "gzip")
+    with pytest.raises(ValueError, match="CBFT_TPU_WIRE"):
+        ed25519_batch.wire_format()
+
+
+def test_ed25519_matches_reference(monkeypatch):
     check_packing_matches_reference()
     check_s_below_l_matches_reference()
     check_wire_unpack()
@@ -152,3 +201,5 @@ def test_ed25519_matches_reference():
     check_wrapper_on_cpu_runs_the_plain_version()
     check_keys_match_reference()
     check_cuda_constants()
+    with monkeypatch.context() as m:
+        check_word_wire(m)

@@ -20,6 +20,8 @@ import torch
 import cometbft_tpu_torch
 from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import sr25519 as sr
+from cometbft_tpu_torch.crypto.cuda import ed25519_batch, sr25519_batch
 from cometbft_tpu_torch.proto.gogo import Timestamp
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -52,7 +54,12 @@ def check_imports_in_a_fresh_interpreter(tmp_path):
         m.name
         for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__, "cometbft_tpu_torch.")
     )
-    assert "cometbft_tpu_torch.crypto.cuda.ed25519_batch" in mods
+    assert {
+        "cometbft_tpu_torch.crypto.cuda.ed25519_batch",
+        "cometbft_tpu_torch.crypto.cuda.sr25519_batch",
+        "cometbft_tpu_torch.crypto.merlin",
+        "cometbft_tpu_torch.crypto.sr25519",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -91,9 +98,11 @@ def check_gpu_backend_raises_without_a_card(tmp_path):
         torch.cuda.is_available = real
 
 
-def check_entry_points_default_to_the_card(tmp_path):
+def check_entry_points_default_to_the_card(tmp_path, monkeypatch):
     """With no backend or device named, verification and hashing go to the
-    card, so without one they raise instead of running on the CPU."""
+    card, so without one they raise instead of running on the CPU: the
+    commit and flush entry points, ``ValidatorSet.hash``, the sr25519
+    batch, and the Ed25519 batch on the word wire."""
     priv = ed.gen_priv_key_from_secret(b"isolation")
     vals = ValidatorSet([Validator.new(priv.pub_key(), 10)])
     block_id = BlockID(b"\x01" * 32, PartSetHeader(1, b"\x02" * 32))
@@ -104,6 +113,11 @@ def check_entry_points_default_to_the_card(tmp_path):
     commit.signatures[0].signature = priv.sign(commit.vote_sign_bytes("c", 0))
     vals.verify_commit("c", block_id, 1, commit, backend="cpu")
     assert vals.hash(device="cpu") == vals.hash(device=None)
+    sr_key = sr.gen_priv_key_from_secret(b"isolation")
+    sr_lane = ([sr_key.pub_key().bytes()], [b"m"], [sr_key.sign(b"m")])
+    assert sr25519_batch.verify_batch(*sr_lane, device="cpu") == [True]
+    ed_lane = ([priv.pub_key().bytes()], [b"m"], [priv.sign(b"m")])
+    monkeypatch.setenv("CBFT_TPU_WIRE", "words")
     real = torch.cuda.is_available
     torch.cuda.is_available = lambda: False
     try:
@@ -111,6 +125,8 @@ def check_entry_points_default_to_the_card(tmp_path):
             ("verify_commit", lambda: vals.verify_commit("c", block_id, 1, commit)),
             ("new_batch_verifier", port_batch.new_batch_verifier),
             ("hash", vals.hash),
+            ("sr25519 verify_batch", lambda: sr25519_batch.verify_batch(*sr_lane)),
+            ("ed25519 verify_batch, word wire", lambda: ed25519_batch.verify_batch(*ed_lane)),
         ):
             try:
                 fn()
@@ -135,10 +151,11 @@ def check_chip_smoke_fails_without_the_repo(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-def test_port_is_isolated_and_never_falls_back(tmp_path):
+def test_port_is_isolated_and_never_falls_back(tmp_path, monkeypatch):
     check_imports_in_a_fresh_interpreter(tmp_path)
     check_no_import_statement_names_them(tmp_path)
     check_gpu_backend_raises_without_a_card(tmp_path)
-    check_entry_points_default_to_the_card(tmp_path)
+    with monkeypatch.context() as m:
+        check_entry_points_default_to_the_card(tmp_path, m)
     check_chip_smoke_fails_without_a_card(tmp_path)
     check_chip_smoke_fails_without_the_repo(tmp_path)
