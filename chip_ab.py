@@ -1,0 +1,94 @@
+"""Time commit verification on one NVIDIA card for two checkouts of this
+repository, in turns.
+
+    python3 chip_ab.py OTHER_CHECKOUT [TURNS]
+
+Each turn starts one process per checkout, other then this, then this
+then other, and so on for TURNS turns (default 4). A process runs on its
+own tree (PYTHONPATH and working directory), builds that tree's kernels
+if they are not built yet, makes chip_smoke.py's seeded 180-validator
+Ed25519 and secp256k1 sets and their commits, warms up, and takes the
+median host wall of ValidatorSet.verify_commit on the card: the Ed25519
+set on the resident route (hits) and the secp256k1 set (add()/verify()).
+Comparing two versions within one call, in turns, gives both the same
+card and the same load on the host, whose Python time moves by up to 2x
+between calls.
+
+Prints one line per process, then one per checkout with the median of
+its processes' medians; exits non-zero without a card or when a process
+fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ED_RUNS, SECP_RUNS = 40, 20
+
+CHILD = f"""
+import json, statistics, time
+import chip_smoke as cs
+from cometbft_tpu_torch.crypto import secp256k1 as secp
+from cometbft_tpu_torch.crypto.cuda import build
+
+build.build_all()
+vals, block_id, commit = cs.make_valset_and_commit()
+svals, sblock_id, scommit = cs.make_valset_and_commit(secp, b"cosmoshub-secp-val-%d")
+
+
+def p50(fn, runs):
+    fn()
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+ed = p50(lambda: vals.verify_commit(cs.CHAIN_ID, block_id, commit.height, commit), {ED_RUNS})
+sp = p50(lambda: svals.verify_commit(cs.CHAIN_ID, sblock_id, scommit.height, scommit), {SECP_RUNS})
+print(json.dumps({{"ed25519": ed, "secp256k1": sp}}))
+"""
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 2
+    trees = {"other": os.path.abspath(sys.argv[1]), "this": os.path.dirname(os.path.abspath(__file__))}
+    turns = int(sys.argv[2]) if len(sys.argv) > 2 else 4
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    results = {name: [] for name in trees}
+    for t in range(turns):
+        for name in ("other", "this") if t % 2 == 0 else ("this", "other"):
+            env = dict(os.environ, PYTHONPATH=trees[name])
+            run = subprocess.run([sys.executable, "-c", CHILD], cwd=trees[name], env=env,
+                                 capture_output=True, text=True, timeout=900)
+            if run.returncode != 0:
+                print(f"chip_ab: the {name} process failed:\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}", file=sys.stderr)
+                return 1
+            res = json.loads(run.stdout.strip().splitlines()[-1])
+            results[name].append(res)
+            print(f"ab: turn {t} {name:5s} verify_commit p50 Ed25519 resident {res['ed25519']:.3f} ms, "
+                  f"secp256k1 {res['secp256k1']:.3f} ms, 180 validators [{card}]", flush=True)
+    for name, rows in results.items():
+        ed = statistics.median(r["ed25519"] for r in rows)
+        sp = statistics.median(r["secp256k1"] for r in rows)
+        print(f"ab: {name:5s} ({trees[name]}) median of {len(rows)} processes: Ed25519 resident {ed:.3f} ms, "
+              f"secp256k1 {sp:.3f} ms [{card}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

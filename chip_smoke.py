@@ -11,9 +11,13 @@ goes wrong:
              spill report;
 2. kernels — hold each kernel against its plain torch version on the card:
              Ed25519 (compact wire) on the contract's edge cases and a
-             mixed batch (and against the CPU verifier); the resident
-             kernel at B=180 in lane order and by a shuffled index with
-             repeats and one row out of range, and on the edge cases; the
+             mixed batch (and against the CPU verifier); the key table
+             kernel on the 180 keys and the edge keys (y >= p, -0, one
+             that does not decompress, torsioned), table for table; the
+             resident kernel over the kernel's tables at B=180 in lane
+             order and by a shuffled index with repeats and one row out
+             of range, on the edge cases and every way R can fail the
+             projective compare, and at 6,000 lanes by index; the
              device-hash kernel on the edge, device-hash and mixed cases
              (and against the CPU verifier), which holds the card's
              SHA-512 and reduction mod L to exactness (torsioned keys whose
@@ -23,7 +27,10 @@ goes wrong:
              {1, 2, 3, 5, 180, 4097} (and against the host tree);
              secp256k1_verify on the secp256k1 contract's cases, 40 mixed
              lanes (and against the CPU verifier) and the wire-level
-             r + n and point-at-infinity lanes; sr25519_verify on the
+             r + n, point-at-infinity and equal, opposite and zero
+             partial-sum lanes, and at 6,000 lanes (2 threads a lane;
+             phase 4's group sweep runs both kernels at 1, 2 and 4);
+             sr25519_verify on the
              sr25519 contract's cases (every way a ristretto decode
              fails) and 40 mixed lanes (and against the CPU verifier);
              ed25519_verify_words and ed25519_verify_full_words on the
@@ -40,10 +47,11 @@ goes wrong:
                              agree, verdicts and errors, for the signed
                              commit, one corrupted signature and a commit
                              under 2/3; they take the resident route (the
-                             first call uploads the set's keys, the rest
-                             hit); a set with one validator replaced misses
-                             and uploads again; ValidatorSet.hash on the
-                             card equals the host tree;
+                             first call uploads the set's keys and builds
+                             their comb tables, the rest hit); a set with
+                             one validator replaced misses and uploads
+                             again; ValidatorSet.hash on the card equals
+                             the host tree;
              indexed flush — the 180 precommits flushed through
                              new_batch_verifier("gpu") while the set is
                              resident take the indexed route;
@@ -88,7 +96,8 @@ goes wrong:
              GPUBatchVerifier(device="cuda:0") finds the set uploaded
              under "cuda" (no second upload);
 4. times   — host wall medians of verify_commit (resident hit, the
-             keyed compact route, "cpu"), the flushes and
+             keyed compact route, "cpu"; the resident miss, upload and
+             table build included, apart), the flushes and
              ValidatorSet.hash; signatures per second of the window in two
              chunks against one launch; the device's idle share over ten
              resident verify_commit calls (torch.profiler); the secp256k1
@@ -101,8 +110,12 @@ goes wrong:
              beside its plain version and its bound (the larger of bytes
              over 3.35 TB/s and 32-bit integer operations over the card's
              integer rate), at the main path's shapes (B=180 and 16,384;
-             8,192 for sr25519), where each kernel's output must again
-             equal its plain version's exactly.
+             4,096 too for secp256k1, 8,192 for sr25519, 180 keys for the
+             key tables), where each kernel's output must again equal its
+             plain version's exactly; and the two grouped kernels at each
+             group size (1, 2 and 4 threads a lane) at B=180 and 16,384,
+             through their C entry points, each output equal to the
+             wrapper's.
 
 Each phase prints its seconds ("phase:" lines).
 
@@ -198,11 +211,17 @@ K1_CARRY32_OPS = 9 * 3 + 8
 K1_ADD_OPS = 10 + K1_CARRY32_OPS  # fe_add, fe_mul_small
 K1_SUB_OPS = 20 + K1_CARRY32_OPS
 K1_CANONICAL_OPS = 2 * K1_CARRY32_OPS + 10 * 4 + 10
+SECP_FIRST_DESIGN_OPS = 1968574  # the one-thread design of secp256k1_verify (PERF.md §6)
+COMB_SLICES = ed25519_batch.COMB_SLICES
 
 ED_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_verify.cu"
+RESIDENT_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_resident.cu"
 KERNELS = {
     "ed25519_verify_compact": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:338"),
-    "ed25519_verify_resident": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:805"),
+    "ed25519_verify_resident": (RESIDENT_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:805"),
+    # no device program of the reference: it takes the decompression and
+    # table of every resident call (:805) to the set's upload (:867)
+    "ed25519_key_tables": (RESIDENT_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:867"),
     "ed25519_verify_full_compact": (ED_SOURCE, "cometbft_tpu/crypto/tpu/ed25519_batch.py:370"),
     "sha256_blocks": (
         "cometbft_tpu_torch/crypto/cuda/csrc/sha256.cu",
@@ -244,6 +263,7 @@ def card_line() -> str:
 def reset_counts() -> None:
     ed25519_batch.LAUNCHES = 0
     ed25519_batch.RESIDENT_LAUNCHES = 0
+    ed25519_batch.TABLE_LAUNCHES = 0
     ed25519_batch.FULL_LAUNCHES = 0
     sha256.LAUNCHES = 0
     merkle.LAUNCHES = 0
@@ -257,6 +277,7 @@ def counts() -> dict:
     return {
         "ed25519_verify_compact": ed25519_batch.LAUNCHES,
         "ed25519_verify_resident": ed25519_batch.RESIDENT_LAUNCHES,
+        "ed25519_key_tables": ed25519_batch.TABLE_LAUNCHES,
         "ed25519_verify_full_compact": ed25519_batch.FULL_LAUNCHES,
         "sha256_blocks": sha256.LAUNCHES,
         "merkle_level": merkle.LAUNCHES,
@@ -342,13 +363,62 @@ def curve25519_ops(extra, canonical: int) -> int:
     return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS + 127 * 8
 
 
-def ed25519_ops_per_lane() -> int:
-    """32-bit integer instructions that one lane of the kernel needs at
+def ed25519_core_ops_per_lane() -> int:
+    """32-bit integer instructions that one lane of the first design's core
+    (verify_core: the compact, full-compact and two word kernels) needs at
     least, whatever its data (the loop has no early exit), from the field
     operations it runs (ed25519_verify.cu, fe25519.cuh)."""
     decompress = (4 + 251, 7 + 11, 4)  # with fe_pow_p58
     final = (254, 11 + 2, 0)  # fe_invert, then x and y
     return curve25519_ops(tuple(d + f for d, f in zip(decompress, final)), 5 + 2)
+
+
+# (squarings, products, sums) of the point operations of ed25519_resident.cu
+GE_DBL = (4, 4, 8)
+GE_DBL_XYZ = (4, 3, 8)
+GE_MADD = (0, 7, 7)
+GE_ADD = (0, 1 + 8, 3 + 6)  # ge_to_cached, then ge_add_cached
+ED_DECOMPRESS = (4 + 251, 7 + 11, 4)  # fe_pow_p58 and its checks; 3 canonical forms
+
+
+def fe25519_ops(parts, canonical: int) -> int:
+    """Instructions of a list of ((squarings, products, sums), times)."""
+    sq, mul, add = (sum(c[k] * n for c, n in parts) for k in range(3))
+    return sq * FE_SQ_OPS + mul * FE_MUL_OPS + add * FE_ADD_OPS + canonical * FE_CANONICAL_OPS
+
+
+def ed25519_resident_ops_per_lane(group: int) -> int:
+    """32-bit integer instructions of one lane of ed25519_verify_resident
+    at ``group`` threads a lane, whatever its data: the comb's 128 table
+    additions (16 columns, 4 slices, 2 scalars), 15 doublings in each of
+    the G threads' chains, G·log2 G additions in the butterfly that sums
+    them, R's decompression and checks (5 canonical forms), the projective
+    compare (2 products, 2 comparisons), and 256 digits of 4 bit reads."""
+    levels = group.bit_length() - 1
+    parts = [(GE_MADD, 128), (GE_DBL, 15 * group), (GE_ADD, group * levels), (ED_DECOMPRESS, 1), ((0, 2, 0), 1)]
+    return fe25519_ops(parts, 5 + 4) + 256 * 4 * 3
+
+
+def ed25519_key_table_ops_per_key(threads: int = 1) -> int:
+    """32-bit integer instructions of the comb tables of one key. With one
+    thread a key (the least work, which the bound counts): decompress A,
+    negate it, 240 doublings to 2^240·(−A) (T computed only at the 15
+    multiples of 2^16 kept), 44 additions for the 64 entries, one batch
+    inversion (63 + 126 products and fe_invert) and, per entry, 4
+    products, 2 sums and 3 canonical forms. ed25519_key_tables runs four
+    threads a key (``threads`` = 4), one a slice t, each decompressing A
+    and doubling 192 + 16t times with its own batch inversion of 16."""
+    if threads == 1:
+        parts = [(ED_DECOMPRESS, 1), ((0, 1, 1), 1), (GE_DBL, 15), (GE_DBL_XYZ, 225), (GE_ADD, 44),
+                 ((254, 11 + 189, 0), 1), ((0, 4, 2), 64)]
+        return fe25519_ops(parts, 3 + 3 * 64)
+    total = 0
+    for t in range(COMB_SLICES):
+        runs = 4 if t else 3
+        parts = [(ED_DECOMPRESS, 1), ((0, 1, 1), 1), (GE_DBL, runs), (GE_DBL_XYZ, 192 + 16 * t - runs),
+                 (GE_ADD, 11), ((254, 11 + 45, 0), 1), ((0, 4, 2), 16)]
+        total += fe25519_ops(parts, 3 + 3 * 16)
+    return total
 
 
 def sr25519_ops_per_lane() -> int:
@@ -362,20 +432,30 @@ def sr25519_ops_per_lane() -> int:
     return curve25519_ops(tuple(2 * d + c for d, c in zip(decode, check_)), 2 * 10 + 4)
 
 
-def secp256k1_ops_per_lane() -> int:
-    """32-bit integer instructions that one lane of secp256k1_verify needs
-    at least, whatever its data (no early exit), from the field operations
-    it runs (secp256k1_verify.cu, fe256k1.cuh)."""
+def secp256k1_ops_per_lane(group: int) -> int:
+    """32-bit integer instructions of one lane of secp256k1_verify at
+    ``group`` threads a lane, whatever its data (no early exit), from the
+    field operations it runs (secp256k1_verify.cu, fe256k1.cuh): the GLV
+    split and recoding; Q's square root and its 0..8 table in each thread
+    that holds a Q term (two, or one at G = 1); 32 windows of four
+    doublings in each of the G chains; the four terms' 132 additions, the
+    33 products by β and 132 negations; G·log2 G additions to combine;
+    the final check."""
     dbl = {"sq": 2, "mul": 6, "small": 1, "add": 8, "sub": 1}  # pt_dbl
     add = {"sq": 0, "mul": 12, "small": 2, "add": 14, "sub": 5}  # pt_add
-    decompress = {"sq": 1 + 253 + 1, "mul": 1 + 13, "small": 0, "add": 1, "sub": 1, "canonical": 3}
+    q_threads = 1 if group == 1 else 2
+    decompress = {"sq": 1 + 253 + 1, "mul": 1 + 13, "add": 1, "sub": 1, "canonical": 3}
     final = {"mul": 2, "add": 1, "canonical": 5}
-    n_dbl, n_add = 1 + 2 * 128, 1 + 9 + 128  # table, then the loop
+    levels = group.bit_length() - 1
+    n_dbl = q_threads * 4 + 32 * 4 * group
+    n_add = q_threads * 3 + 4 * 33 + group * levels
+    extra = {"mul": 33, "sub": 4 * 33}  # λQ's X times β, each entry's negated y
     cost = {"sq": K1_SQ_OPS, "mul": K1_MUL_OPS, "small": K1_ADD_OPS, "add": K1_ADD_OPS,
             "sub": K1_SUB_OPS, "canonical": K1_CANONICAL_OPS}
-    total = sum(cost[k] * (n_dbl * dbl.get(k, 0) + n_add * add.get(k, 0)
-                           + decompress.get(k, 0) + final.get(k, 0)) for k in cost)
-    return total + 128 * 8  # the digit reads
+    total = sum(cost[k] * (n_dbl * dbl.get(k, 0) + n_add * add.get(k, 0) + q_threads * decompress.get(k, 0)
+                           + final.get(k, 0) + extra.get(k, 0)) for k in cost)
+    split = 2 * 64 + 16 + 20 + 16 + 16  # the split's 32x32->64 multiply-adds
+    return total + split * 4 + 4 * 33 * 6  # and the recoding of four scalars
 
 
 def live_sha512_blocks(mlen: np.ndarray) -> int:
@@ -461,14 +541,16 @@ def secp_cpu(pks, msgs, sigs):
 
 def check_secp(dev) -> int:
     """secp256k1_verify == its plain version on the card == the CPU
-    verifier on the contract's cases and 40 mixed lanes, and the
-    wire-level r + n and infinity lanes give their verdicts."""
+    verifier on the contract's cases and 40 mixed lanes, the wire-level
+    r + n, infinity and partial-sum lanes give their verdicts, and the
+    same lanes tiled to 6,000 (2 threads a lane) equal the plain version."""
     cases, wire_cases = vectors.secp256k1_cases(SEED)
     cases += vectors.secp256k1_mixed(40, SEED)
     pks, msgs, sigs = [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
     wire, flags, valid = secp256k1_batch.prepare_batch(pks, msgs, sigs)
     w_wire, w_flags, w_want = vectors.secp256k1_wire(wire_cases)
-    w_t, f_t = to_dev(dev, np.concatenate([wire, w_wire], axis=1), np.concatenate([flags, w_flags]))
+    all_wire, all_flags = np.concatenate([wire, w_wire], axis=1), np.concatenate([flags, w_flags])
+    w_t, f_t = to_dev(dev, all_wire, all_flags)
     got = secp256k1_batch.verify_kernel(w_t, f_t)
     torch.cuda.synchronize()
     err = max_abs_err(got, secp256k1_batch.verify_plain(w_t, f_t))
@@ -477,8 +559,17 @@ def check_secp(dev) -> int:
     cpu = secp_cpu(pks, msgs, sigs)
     check((got[:len(cases)] & valid).tolist() == cpu, "secp256k1_verify disagrees with the CPU verifier")
     check(got[len(cases):].tolist() == w_want, f"secp256k1_verify wire-level lanes: {got[len(cases):].tolist()} != {w_want}")
+    big = 6000
+    lanes = np.arange(big) % all_wire.shape[1]
+    w_t, f_t = to_dev(dev, all_wire[:, lanes], all_flags[lanes])
+    got_big = secp256k1_batch.verify_kernel(w_t, f_t)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got_big, secp256k1_batch.verify_plain(w_t, f_t)))
+    check(err == 0 and got_big.cpu().numpy().tolist() == got[lanes].tolist(), "secp256k1_verify at 6,000 lanes disagrees")
+    groups = [build.group_size(b, dev, secp256k1_batch.GROUP_THREADS_PER_SM) for b in (all_wire.shape[1], big)]
     print(f"kernels: secp256k1_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, "
-          f"wire-level r + n and infinity lanes {w_want}, max_abs_err {err}")
+          f"wire-level lanes {[c[0] for c in wire_cases]} {w_want}, B={big} == plain; threads a lane {groups}, "
+          f"max_abs_err {err}")
     return err
 
 
@@ -538,14 +629,47 @@ def edge_columns():
     return cases, [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
 
 
+def edge_keys():
+    """The key table kernel's edge keys: y >= p (the identity, y taken mod
+    p), -0, a y with no root (flag 0), a torsioned key, all-ones."""
+    p = purepy.P
+    torsioned = vectors._torsioned_signature(0x1F2E3D4C, b"torsion-", True)[1]
+    return [(p + 1).to_bytes(32, "little"), (1 | 1 << 255).to_bytes(32, "little"),
+            vectors._no_root_y().to_bytes(32, "little"), torsioned, b"\xff" * 32]
+
+
+def check_key_tables(dev, vals) -> int:
+    """ed25519_key_tables == key_tables_plain on the 180 keys and the edge
+    keys, entry for entry; the flags say which keys decompress."""
+    keys = [v.pub_key.bytes() for v in vals.validators] + edge_keys()
+    arr, _ = keystore.key_rows(keys)
+    (rows,) = to_dev(dev, arr)
+    got = ed25519_batch.key_tables_kernel(rows)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ed25519_batch.key_tables_plain(rows))
+    check(err == 0, "ed25519_key_tables disagrees with its plain version")
+    flags = got[:, ed25519_batch.FLAG_ROW, 0].cpu().tolist()
+    check(flags == [int(purepy.pt_decode(k) is not None) for k in keys], f"ed25519_key_tables flags wrong: {flags[-5:]}")
+    (neg_b,) = to_dev(dev, np.frombuffer(ed25519_batch.neg_base_encoding(), np.uint8).reshape(1, 32))
+    err = max(err, max_abs_err(ed25519_batch.base_tables(dev), ed25519_batch.key_tables_plain(neg_b)))
+    check(err == 0, "the base point's tables differ from their plain version")
+    print(f"kernels: ed25519_key_tables {len(keys)} keys ({len(keys) - sum(flags)} that do not decompress) "
+          f"and B's tables == plain, {ed25519_batch.KEY_TABLE_BYTES} bytes a key, max_abs_err {err}")
+    return err
+
+
 def check_resident(dev, vals, commit) -> int:
-    """The resident kernel at B=180 in lane order and by a shuffled index
-    with repeats and one row out of range, and on the edge vectors."""
+    """The resident kernel over the table kernel's tables at B=180 in lane
+    order and by a shuffled index with repeats and one row out of range,
+    on the edge vectors and every R case, and at 6,000 lanes by index with
+    rows out of range."""
     rng = np.random.default_rng(SEED + 3)
     pks = [v.pub_key.bytes() for v in vals.validators]
     msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
     sigs = [cs.signature for cs in commit.signatures]
     pk_arr = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
+    (keys_t,) = to_dev(dev, pk_arr)
+    tables = ed25519_batch.key_tables_kernel(keys_t)
     err = 0
     rows = rng.integers(0, len(pks), len(pks)).astype(np.int32)  # repeats
     cases = [("lane order", None, np.arange(len(pks)))]
@@ -554,26 +678,45 @@ def check_resident(dev, vals, commit) -> int:
     cases.append(("shuffled index", oob, rows))
     for label, index, lane_rows in cases:
         rsh, valid = ed25519_batch._prepare_rsh_compact(pk_arr[lane_rows], [msgs[r] for r in lane_rows], [sigs[r] for r in lane_rows])
-        table, rsh_t = to_dev(dev, pk_arr, rsh)
+        (rsh_t,) = to_dev(dev, rsh)
         idx_t = None if index is None else to_dev(dev, index)[0]
-        got = ed25519_batch.verify_kernel_resident(table, idx_t, rsh_t)
+        got = ed25519_batch.verify_kernel_resident(tables, idx_t, rsh_t)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(table, idx_t, rsh_t)))
+        err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(tables, idx_t, rsh_t)))
         want = np.ones(len(pks), bool)
         if index is not None:
             want[7] = False
         check((got.cpu().numpy() & valid).tolist() == want.tolist(), f"resident kernel, {label}: wrong verdicts")
+    # the edge vectors and the R cases, in lane order
     cases_e, e_pks, e_msgs, e_sigs = edge_columns()
-    e_arr, ok = keystore.key_rows(e_pks)
-    rsh, valid = ed25519_batch._prepare_rsh_compact(e_arr, e_msgs, e_sigs)
-    table, rsh_t = to_dev(dev, e_arr, rsh)
-    got = ed25519_batch.verify_kernel_resident(table, None, rsh_t)
+    r_cases = vectors.resident_r_cases()
+    e_arr, ok = keystore.key_rows(e_pks + [c[1] for c in r_cases])
+    rsh, valid = ed25519_batch._prepare_rsh_compact(e_arr[:len(e_pks)], e_msgs, e_sigs)
+    rsh = np.concatenate([rsh, vectors.resident_rows(r_cases)], axis=1)
+    valid = np.concatenate([valid, np.ones(len(r_cases), bool)])
+    e_keys, rsh_t = to_dev(dev, e_arr, rsh)
+    e_tables = ed25519_batch.key_tables_kernel(e_keys)
+    got = ed25519_batch.verify_kernel_resident(e_tables, None, rsh_t)
     torch.cuda.synchronize()
-    err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(table, None, rsh_t)))
-    cpu = [purepy.ed25519_verify(*c[1:]) for c in cases_e]
-    check((got.cpu().numpy() & valid & ok).tolist() == cpu, "resident kernel disagrees with the CPU verifier")
+    err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(e_tables, None, rsh_t)))
+    want = [purepy.ed25519_verify(*c[1:]) for c in cases_e] + [c[5] for c in r_cases]
+    check((got.cpu().numpy() & valid & ok).tolist() == want, "resident kernel disagrees with the CPU verifier")
+    # 6,000 lanes by index into the edge set: the rule gives 2 threads a lane
+    big = 6000
+    lanes = np.arange(big) % len(want)
+    idx = lanes.astype(np.int32)
+    idx[::97] = len(e_arr) + 1  # out of range
+    idx_t, rsh_big = to_dev(dev, idx, rsh[:, lanes])
+    got = ed25519_batch.verify_kernel_resident(e_tables, idx_t, rsh_big)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, ed25519_batch.verify_resident_plain(e_tables, idx_t, rsh_big)))
+    want_big = np.array(want)[lanes] & (idx < len(e_arr))
+    check((got.cpu().numpy() & valid[lanes] & ok[lanes]).tolist() == want_big.tolist(), "resident kernel at 6,000 lanes: wrong verdicts")
     check(err == 0, "ed25519_verify_resident disagrees with its plain version")
-    print(f"kernels: ed25519_verify_resident B={len(pks)} lane order and shuffled index (repeats, 1 out of range), {len(cases_e)} edge lanes == plain == cpu, max_abs_err {err}")
+    groups = [build.group_size(b, dev, ed25519_batch.GROUP_THREADS_PER_SM) for b in (len(pks), len(want), big)]
+    print(f"kernels: ed25519_verify_resident B={len(pks)} lane order and shuffled index (repeats, 1 out of range), "
+          f"{len(cases_e)} edge lanes and {len(r_cases)} R lanes == plain == cpu, B={big} by index == plain; "
+          f"threads a lane {groups}, max_abs_err {err}")
     return err
 
 
@@ -1011,7 +1154,7 @@ def words_path(vals, commit, per_call):
 
 
 PATHS = {  # path -> the kernels it must launch
-    "commit": ("ed25519_verify_resident", "sha256_blocks", "merkle_level"),
+    "commit": ("ed25519_verify_resident", "ed25519_key_tables", "sha256_blocks", "merkle_level"),
     "indexed flush": ("ed25519_verify_resident",),
     "device hash": ("ed25519_verify_resident", "ed25519_verify_full_compact"),
     "window": ("ed25519_verify_compact",),
@@ -1093,7 +1236,7 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
         errs["ed25519_verify_compact"] = max(errs["ed25519_verify_compact"], err)
         print(f"kernels: ed25519 B={batch} == plain, all {batch} accepted, max_abs_err {err}")
         ms = cuda_ms(lambda: ed25519_batch.verify_kernel_compact(w), runs=20)
-        b_ms, b_by = bound(batch * (128 + 1), batch * ed25519_ops_per_lane(), int_rate)
+        b_ms, b_by = bound(batch * (128 + 1), batch * ed25519_core_ops_per_lane(), int_rate)
         return ms, plain_ms, b_ms, b_by
 
     ms, plain_ms, b_ms, b_by = ed_row(N_VALIDATORS, 2)
@@ -1153,30 +1296,33 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
 
 
 def time_secp_kernel(svals, scommit, card: str, errs: dict) -> dict:
-    """secp256k1_verify at B=180 (one commit) and 16,384 (the window), equal
-    to its plain version, beside its bound."""
+    """secp256k1_verify at B=180 (one commit), 4,096 (a window chunk) and
+    16,384 (the window in one launch), equal to its plain version, beside
+    its bound at the group size each launch uses."""
     dev = torch.device("cuda")
     int_rate = int32_ops_per_s()
     items = precommits(svals, scommit)
     wire, flags, valid = secp256k1_batch.prepare_batch([it[0].bytes() for it in items], [it[1] for it in items],
                                                        [it[2] for it in items])
     check(bool(valid.all()), "the signed secp256k1 commit packed with an invalid lane")
-    ops = secp256k1_ops_per_lane()
     out = {}
-    for batch, plain_runs in ((N_VALIDATORS, 2), (BIG_BATCH, 1)):
+    for batch, plain_runs in ((N_VALIDATORS, 2), (4096, 1), (BIG_BATCH, 1)):
         lanes = np.arange(batch) % N_VALIDATORS
         w_t, f_t = to_dev(dev, wire[:, lanes], flags[lanes])
+        group = build.group_size(batch, dev, secp256k1_batch.GROUP_THREADS_PER_SM)
+        ops = secp256k1_ops_per_lane(1)  # the least work: one doubling chain a lane
         row = kernel_row(
-            "secp256k1_verify", f"B={batch}", lambda: secp256k1_batch.verify_kernel(w_t, f_t),
+            "secp256k1_verify", f"B={batch} G={group}", lambda: secp256k1_batch.verify_kernel(w_t, f_t),
             lambda: secp256k1_batch.verify_plain(w_t, f_t), plain_runs,
             (128 + 4 + 1) * batch, batch * ops, int_rate, errs, card)
         check(bool(row.pop("got").all()), f"secp256k1_verify rejected a signed lane at B={batch}")
         if batch == N_VALIDATORS:
             out = row
         else:
-            out.update({f"{k}_16384": v for k, v in row.items()})
-    print(f"time: secp256k1_verify model: {ops} int32 instructions a lane "
-          f"(fe_mul {K1_MUL_OPS}, fe_sq {K1_SQ_OPS}, fe_add {K1_ADD_OPS}) [{card}]")
+            out.update({f"{k}_{batch}": v for k, v in row.items()})
+        print(f"time: secp256k1_verify B={batch} model: {ops} int32 instructions a lane at G=1 (the bound), "
+              f"{secp256k1_ops_per_lane(group)} at the launch's G={group} (the first design's "
+              f"{SECP_FIRST_DESIGN_OPS}: bound {bound(133 * batch, batch * SECP_FIRST_DESIGN_OPS, int_rate)[0]:.6f} ms) [{card}]")
     return {"secp256k1_verify": out}
 
 
@@ -1213,7 +1359,7 @@ def time_words_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> 
     wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
     wire24, hi, lo, nblocks, valid2 = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
     check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
-    ed_ops = ed25519_ops_per_lane()
+    ed_ops = ed25519_core_ops_per_lane()
     out = {}
     for batch, plain_runs in ((N_VALIDATORS, 2), (BIG_BATCH, 1)):
         lanes = np.arange(batch) % N_VALIDATORS
@@ -1257,8 +1403,10 @@ def kernel_row(name, label, kernel, plain, plain_runs, nbytes, ops, int_rate, er
 
 
 def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> dict:
-    """The resident and device-hash kernels at B=180 (one commit) and
-    B=16,384 (the window, by index into the 180 keys)."""
+    """The key table kernel for the 180 keys, and the resident and
+    device-hash kernels at B=180 (one commit) and B=16,384 (the window,
+    by index into the 180 keys). The resident bound counts the key tables
+    once and the operations of the group size its launch uses."""
     dev = torch.device("cuda")
     pks = [v.pub_key.bytes() for v in vals.validators]
     msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
@@ -1268,30 +1416,45 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
     rsh, valid = ed25519_batch._prepare_rsh_compact(pk_arr, msgs, sigs)
     wire, msg, mlen, valid2 = ed25519_batch.prepare_batch_device_hash_compact(pks, msgs, sigs)
     check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
-    ed_ops = ed25519_ops_per_lane()
-    out = {}
+    (keys_t,) = to_dev(dev, pk_arr)
+    table_ops = ed25519_key_table_ops_per_key()
+    row = kernel_row("ed25519_key_tables", f"{n} keys", lambda: ed25519_batch.key_tables_kernel(keys_t),
+                     lambda: ed25519_batch.key_tables_plain(keys_t), 2, n * (32 + ed25519_batch.KEY_TABLE_BYTES),
+                     n * table_ops, int_rate, errs, card)
+    tables = row.pop("got")
+    out = {"ed25519_key_tables": row}
+    print(f"time: ed25519_key_tables model: {table_ops} int32 instructions a key at one thread a key (the bound), "
+          f"{ed25519_key_table_ops_per_key(COMB_SLICES)} as the kernel runs them, four threads a key [{card}]")
+    full_ops = ed25519_core_ops_per_lane()
+    table_bytes = (n + 1) * ed25519_batch.KEY_TABLE_BYTES  # the set's tables and B's, each read once
     for batch, plain_runs in ((n, 2), (BIG_BATCH, 1)):
         lanes = np.arange(batch) % n
         idx = None if batch == n else to_dev(dev, lanes.astype(np.int32))[0]
-        table, rsh_t, w_t, msg_t, mlen_t = to_dev(dev, pk_arr, rsh[:, lanes], wire[:, lanes], msg[:, lanes], mlen[lanes])
+        rsh_t, w_t, msg_t, mlen_t = to_dev(dev, rsh[:, lanes], wire[:, lanes], msg[:, lanes], mlen[lanes])
         idx_bytes = 0 if idx is None else 4 * batch
         form = "lane order" if idx is None else "by index"
         blocks = live_sha512_blocks(mlen[lanes])
         hash_ops = blocks * SHA512_BLOCK_OPS + batch * SC_REDUCE_OPS
+        group = build.group_size(batch, dev, ed25519_batch.GROUP_THREADS_PER_SM)
+        res_ops = ed25519_resident_ops_per_lane(1)  # the least work: one chain a lane
         rows = {
             "ed25519_verify_resident": kernel_row(
-                "ed25519_verify_resident", f"B={batch} {form}",
-                lambda: ed25519_batch.verify_kernel_resident(table, idx, rsh_t),
-                lambda: ed25519_batch.verify_resident_plain(table, idx, rsh_t), plain_runs,
-                n * 32 + idx_bytes + 96 * batch + batch, batch * ed_ops, int_rate, errs, card),
+                "ed25519_verify_resident", f"B={batch} {form} G={group}",
+                lambda: ed25519_batch.verify_kernel_resident(tables, idx, rsh_t),
+                lambda: ed25519_batch.verify_resident_plain(tables, idx, rsh_t), plain_runs,
+                table_bytes + idx_bytes + 96 * batch + batch, batch * res_ops, int_rate, errs, card),
             "ed25519_verify_full_compact": kernel_row(
                 "ed25519_verify_full_compact", f"B={batch} u8[{msg.shape[0]},B] messages",
                 lambda: ed25519_batch.verify_kernel_full_compact(w_t, msg_t, mlen_t),
                 lambda: ed25519_batch.verify_full_compact_plain(w_t, msg_t, mlen_t), plain_runs,
-                (96 + msg.shape[0] + 4 + 1) * batch, batch * ed_ops + hash_ops, int_rate, errs, card),
+                (96 + msg.shape[0] + 4 + 1) * batch, batch * full_ops + hash_ops, int_rate, errs, card),
         }
         check(bool(rows["ed25519_verify_resident"]["got"].all()), f"resident kernel rejected a signed lane at B={batch}")
         check(bool(rows["ed25519_verify_full_compact"]["got"].all()), f"full kernel rejected a signed lane at B={batch}")
+        old_model = bound(table_bytes + idx_bytes + 97 * batch, batch * full_ops, int_rate)[0]
+        print(f"time: ed25519_verify_resident B={batch} model: {res_ops} int32 instructions a lane at G=1 (the bound), "
+              f"{ed25519_resident_ops_per_lane(group)} at the launch's G={group} "
+              f"(the first design's core {full_ops}: bound {old_model:.6f} ms) [{card}]")
         for name, row in rows.items():
             del row["got"]
             if batch == n:
@@ -1299,6 +1462,53 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
             else:
                 out[name].update({f"{k}_16384": v for k, v in row.items()})
     return out
+
+
+def group_sweep(vals, commit, svals, scommit, card: str) -> None:
+    """Each grouped kernel at 1, 2 and 4 threads a lane, B=180 and 16,384,
+    launched through its C entry point, each output equal to the
+    wrapper's (whose group size the rule picks): the measurement behind
+    build.group_size."""
+    dev = torch.device("cuda")
+    stream = build.stream_ptr(dev)
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
+    sigs = [cs.signature for cs in commit.signatures]
+    pk_arr = np.frombuffer(b"".join(pks), np.uint8).reshape(-1, 32)
+    rsh, _ = ed25519_batch._prepare_rsh_compact(pk_arr, msgs, sigs)
+    (keys_t,) = to_dev(dev, pk_arr)
+    tables = ed25519_batch.key_tables_kernel(keys_t)
+    base = ed25519_batch.base_tables(dev)
+    items = precommits(svals, scommit)
+    swire, sflags, _ = secp256k1_batch.prepare_batch(*lane_columns(items))
+    res_lib = ed25519_batch._resident_lib()
+    secp_lib = build.load("secp256k1_verify", secp256k1_batch._SIGNATURES)
+    for batch in (N_VALIDATORS, 4096, BIG_BATCH):
+        lanes = np.arange(batch) % N_VALIDATORS
+        idx = None if batch == N_VALIDATORS else to_dev(dev, lanes.astype(np.int32))[0]
+        rsh_t, w_t, f_t = to_dev(dev, rsh[:, lanes], swire[:, lanes], sflags[lanes])
+        want_ed = ed25519_batch.verify_kernel_resident(tables, idx, rsh_t)
+        want_secp = secp256k1_batch.verify_kernel(w_t, f_t)
+        line = []
+        for group in (1, 2, 4):
+            out = torch.empty(batch, dtype=torch.uint8, device=dev)
+
+            def ed():
+                build.check(res_lib.cbt_ed25519_verify_resident(
+                    tables.data_ptr(), tables.shape[0], None if idx is None else idx.data_ptr(), rsh_t.data_ptr(),
+                    base.data_ptr(), out.data_ptr(), batch, group, stream), "ed25519_verify_resident")
+
+            def sp():
+                build.check(secp_lib.cbt_secp256k1_verify(
+                    w_t.data_ptr(), f_t.data_ptr(), out.data_ptr(), batch, group, stream), "secp256k1_verify")
+
+            for name, fn, want in (("ed25519_verify_resident", ed, want_ed), ("secp256k1_verify", sp, want_secp)):
+                fn()
+                torch.cuda.synchronize()
+                check(torch.equal(out.bool(), want), f"{name} at G={group} B={batch} != the wrapper's output")
+                line.append(f"{name} G={group} {cuda_ms(fn, runs=20):.4f} ms")
+        rule = [build.group_size(batch, dev, m.GROUP_THREADS_PER_SM) for m in (ed25519_batch, secp256k1_batch)]
+        print(f"time: group sweep B={batch}: " + ", ".join(line) + f"; the rule picks G={rule[0]} and G={rule[1]} [{card}]")
 
 
 def wall_ms(fn, runs: int, warmup: int = 1) -> float:
@@ -1361,7 +1571,18 @@ def time_end_to_end(vals, block_id, commit, window, card: str) -> None:
         med, lo, hi = ab[key]
         print(f"e2e: verify_commit gpu {label:15s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
               f"{N_VALIDATORS} validators, in turns [{card}]")
+
+    def miss():
+        store.invalidate()
+        verify("gpu")()
+
+    def upload():
+        ed25519_batch._build_resident(pks, "cuda")
+        torch.cuda.synchronize()
+
     rows = [
+        ("verify_commit gpu resident (miss)", wall_ms(miss, runs=10)),
+        ("  of which upload and key tables", wall_ms(upload, runs=10)),
         ("verify_commit cpu", wall_ms(verify("cpu"), runs=3, warmup=0)),
         ("  of which sign bytes", wall_ms(lambda: [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))], runs=20)),
         ("  of which verify_commit_valset", wall_ms(lambda: cryptobatch.verify_commit_valset(pks, msgs, sigs), runs=20)),
@@ -1502,6 +1723,7 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = {
         "ed25519_verify_compact": check_ed25519(dev),
+        "ed25519_key_tables": check_key_tables(dev, vals),
         "ed25519_verify_resident": check_resident(dev, vals, commit),
         "ed25519_verify_full_compact": check_full_compact(dev),
         "sha256_blocks": check_sha256(dev),
@@ -1538,6 +1760,7 @@ def main() -> int:
     int_rate = int32_ops_per_s()
     times.update(time_sr_kernel(sr_lanes, card, errs, int_rate))
     times.update(time_words_kernels(vals, commit, card, errs, int_rate))
+    group_sweep(vals, commit, svals, scommit, card)
     print(f"phase: times {time.perf_counter() - t_times:.1f} s")
     record = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,4 +1,4 @@
-// Cofactorless Ed25519 verification, one thread per signature: five
+// Cofactorless Ed25519 verification, one thread per signature: four
 // kernels over one core.
 //
 // verify_core replaces cometbft_tpu/crypto/tpu/ed25519_batch.py::
@@ -10,13 +10,10 @@
 //   (verify_kernel_compact, :338-347): the compact wire u8[128, B],
 //   byte-major (row r of lane b at r * B + b): rows 0:32 A, 32:64 R,
 //   64:96 S, 96:128 h = SHA-512(R||A||M) mod L, all little-endian.
-// * ed25519_verify_resident replaces both _verify_core_resident (:805) and
-//   _verify_core_indexed (:395): A from a key table u8[N, 32] resident on
-//   the device (row-major), row b for lane b (the resident commit, index
-//   null) or row idx[b] (the indexed flush), and u8[96, B] rows R, S, h.
-//   The two reference programs differ only in how a lane finds its key
-//   row, so one kernel serves both. Every index is bounds-checked: a row
-//   outside [0, N) rejects the lane and is never read.
+// * The resident routes (_verify_core_resident :805, _verify_core_indexed
+//   :395) are not here: ed25519_resident.cu verifies them against comb
+//   tables of each key built once at upload, several threads a lane, and
+//   without an inversion.
 // * ed25519_verify_full_compact replaces verify_full_kernel_compact
 //   (:370): wire u8[96, B] rows A, R, S, the message plane u8[MP, B]
 //   (sha512.py::stage_ragged_np, prefix_len 64) and int32[B] lengths. Each
@@ -38,7 +35,9 @@
 // verify_core is compiled once, not inlined into each kernel: it holds
 // nearly all of a lane's work, so one call per lane costs nothing that
 // shows, and three inlined copies more than doubled the build time. The
-// two word kernels are prologues only.
+// two word kernels are prologues only. These four kernels keep the first
+// design; ed25519_resident.cu shows what a key table built once and a
+// group of threads a lane do to the same work.
 //
 // Output: u8[B], 1 where encode([s]B + [h](-A)) equals R byte for byte
 // and A decompressed. The host ANDs it with its validity mask (s < L,
@@ -215,25 +214,6 @@ ed25519_verify_compact_kernel(const uint8_t *__restrict__ wire,
   out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
 }
 
-// Lane b's key row (row b, or idx[b] when idx is given) as eight
-// little-endian words; false, with zero words, when the row is outside
-// [0, N).
-__device__ __forceinline__ bool load_key(uint32_t aw[8],
-                                         const uint8_t *__restrict__ table,
-                                         int N, const int32_t *__restrict__ idx,
-                                         int b) {
-  const int row = idx != nullptr ? idx[b] : b;
-  const bool have = row >= 0 && row < N;
-  const uint8_t *p = table + (size_t)(have ? row : 0) * 32;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    aw[j] = have ? ((uint32_t)p[4 * j] | ((uint32_t)p[4 * j + 1] << 8) |
-                    ((uint32_t)p[4 * j + 2] << 16) | ((uint32_t)p[4 * j + 3] << 24))
-                 : 0u;
-  }
-  return have;
-}
-
 // Byte pos (>= 64) of lane b's padded stream R || A || M || 0x80 || 0 ||
 // 128-bit big-endian bit length, as sha512.py::blocks_from_bytes lays it:
 // the length field wins, then the message, then the terminator.
@@ -288,25 +268,6 @@ __device__ __forceinline__ void challenge_words(uint32_t hw[8],
     sha512_compress(st, w);
   }
   sc_reduce_digest(hw, st);
-}
-
-__global__ void __launch_bounds__(128)
-ed25519_verify_resident_kernel(const uint8_t *__restrict__ table, int N,
-                               const int32_t *__restrict__ idx,
-                               const uint8_t *__restrict__ rsh,
-                               uint8_t *__restrict__ out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  uint32_t aw[8], rw[8], sw[8], hw[8];
-  if (!load_key(aw, table, N, idx, b)) {
-    out[b] = 0;
-    return;
-  }
-  load_words(rw, rsh, 0, B, b);
-  load_words(sw, rsh, 32, B, b);
-  load_words(hw, rsh, 64, B, b);
-  out[b] = verify_core(aw, rw, sw, hw) ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(128)
@@ -387,15 +348,6 @@ extern "C" int cbt_ed25519_verify_compact(const void *wire, void *out, int B,
 }
 
 static inline int grid_for(int B) { return (B + 127) / 128; }
-
-extern "C" int cbt_ed25519_verify_resident(const void *table, int N,
-                                           const void *idx, const void *rsh,
-                                           void *out, int B, void *stream) {
-  ed25519_verify_resident_kernel<<<grid_for(B), 128, 0, (cudaStream_t)stream>>>(
-      (const uint8_t *)table, N, (const int32_t *)idx, (const uint8_t *)rsh,
-      (uint8_t *)out, B);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int cbt_ed25519_verify_full_compact(const void *wire,
                                                const void *msg, int MP,

@@ -348,3 +348,59 @@ FE_FN void ge_add(ge &r, const ge &p, const ge &q, const fe &d2) {
   ge_to_cached(qc, q, d2);
   ge_add_cached(r, p, qc);
 }
+
+// --- helpers of the resident comb (ed25519_resident.cu) ---------------------
+
+// A point in affine Niels form (y+x, y-x, 2d x y): what a precomputed
+// table holds, one product cheaper to add than ge_cached.
+struct ge_niels {
+  fe yp, ym, t2d;
+};
+
+FE_FN void ge_identity(ge &r) {
+  fe_zero(r.X);
+  fe_one(r.Y);
+  fe_one(r.Z);
+  fe_zero(r.T);
+}
+
+// ref10's ge_madd: add-2008-hwcd-3 with Z2 = 1; complete on edwards25519.
+// r may alias p.
+FE_FN void ge_madd(ge &r, const ge &p, const ge_niels &q) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sub(t, p.Y, p.X);
+  fe_mul(a, t, q.ym);
+  fe_add(t, p.Y, p.X);
+  fe_mul(b, t, q.yp);
+  fe_mul(c, p.T, q.t2d);
+  fe_add(d, p.Z, p.Z);
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
+// ge_dbl without T (dbl-2008-hwcd reads no T): for a run of doublings
+// whose intermediate points are only doubled again. r may alias p.
+FE_FN void ge_dbl_xyz(ge &r, const ge &p) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sq(a, p.X);
+  fe_sq(b, p.Y);
+  fe_sq(t, p.Z);
+  fe_add(c, t, t);
+  fe_neg(d, a);
+  fe_add(t, p.X, p.Y);
+  fe_sq(e, t);
+  fe_sub(e, e, a);
+  fe_sub(e, e, b);
+  fe_add(g, d, b);
+  fe_sub(f, g, c);
+  fe_sub(h, d, b);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+}

@@ -147,7 +147,7 @@ FE_FN void fe_sq(fe &out, const fe &a) {
   fe_reduce(out, c);
 }
 
-__device__ __noinline__ void fe_sq_n(fe &out, const fe &a, int n) {
+FE_FN void fe_sq_n(fe &out, const fe &a, int n) {
   out = a;
 #pragma unroll 1
   for (int k = 0; k < n; ++k) fe_sq(out, out);
@@ -155,7 +155,7 @@ __device__ __noinline__ void fe_sq_n(fe &out, const fe &a, int n) {
 
 // a^((p+1)/4) by libsecp256k1's addition chain (253 squarings, 13
 // products): a square root of a when one exists, p = 3 mod 4.
-__device__ __noinline__ void fe_sqrt_candidate(fe &out, const fe &a) {
+FE_FN void fe_sqrt_candidate(fe &out, const fe &a) {
   fe x2, x3, x6, x9, x11, x22, x44, x88, x176, x220, x223, t;
   fe_sq(t, a);
   fe_mul(x2, t, a);

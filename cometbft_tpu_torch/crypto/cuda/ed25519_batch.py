@@ -21,12 +21,25 @@ a failed decompression rejects; -0 decodes as 0; R is compared as raw
 bytes, so a non-canonical R never matches.
 
 The steady-state routes (reference :605-660, :805-1040) verify with the
-same core: ``verify_kernel_resident`` against key rows resident on the
+same contract: ``verify_kernel_resident`` against keys resident on the
 device (lane order for a commit, gathered by row index for a flush),
 and ``verify_kernel_full_compact`` with h = SHA-512(R‖A‖M) mod L computed
 on the card. Each has a plain torch version beside it. The key-store
 routes hash on the host whatever ``CBFT_TPU_HASH`` says, as the
 reference's do; only ``verify_batch`` (keys shipped) reads it.
+
+The resident route does not rerun the core. When a validator set is
+uploaded, ``key_tables_kernel`` (``csrc/ed25519_resident.cu``
+``ed25519_key_tables``) decompresses each key once and stores comb
+tables of −A beside the key rows: for slice t in 0..3 and j in 0..15
+the point Σ_i j_i·2^(64i + 16t)·(−A) in affine Niels form, 8,320 bytes
+a key with its validity flag. The base point has the same tables
+(``base_tables``, built once a device from the encoding of −B). A lane
+is then a 16-column comb over s and h: column c adds the entries that
+bits 64i + 16t + c of s and of h select, one doubling a column, and its
+group of G threads (``build.group_size``) splits the four slices and
+sums them by shuffles. R is decompressed beside the loop, in another warp,
+and compared in projective form, so no inversion is left.
 
 ``verify_batch`` also carries the reference's u32 word wire
 (``CBFT_TPU_WIRE=words``, ``wire_format`` :662): ``verify_kernel_words``
@@ -58,6 +71,7 @@ MAX_CHUNK = 8192  # per-curve default chunk cap; CBFT_TPU_MAX_CHUNK overrides
 # launches of each CUDA kernel (the plain versions do not count)
 LAUNCHES = 0  # ed25519_verify_compact
 RESIDENT_LAUNCHES = 0  # ed25519_verify_resident
+TABLE_LAUNCHES = 0  # ed25519_key_tables
 FULL_LAUNCHES = 0  # ed25519_verify_full_compact
 WORDS_LAUNCHES = 0  # ed25519_verify_words
 FULL_WORDS_LAUNCHES = 0  # ed25519_verify_full_words
@@ -449,26 +463,168 @@ def verify_compact_plain(wire: torch.Tensor) -> torch.Tensor:
     return _verify_words(words[0:8], words[8:16], words[16:24], words[24:32])
 
 
-def _key_rows(table: torch.Tensor, idx: Optional[torch.Tensor], batch: int):
-    """Each lane's key row: (int64[8,B] words, bool[B] in range). Lane b
-    reads row idx[b], or row b when idx is None; a row outside the table
-    reads as zeros and is out of range."""
-    n = table.shape[0]
-    rows = torch.arange(batch, device=table.device) if idx is None else idx.to(torch.int64)
+# --- the resident route: comb tables of each key, built once ----------------
+
+COMB_SLICES = 4  # slice t holds columns 16t..16t+15
+COMB_TEETH = 4  # column c of a scalar: its bits 64i + c, i = 0..3
+COMB_COLUMNS = 16
+SLICE_ENTRIES = 1 << COMB_TEETH
+GROUP_THREADS_PER_SM = 256  # the resident kernel's budget for build.group_size
+ENTRY_WORDS = 32  # Y+X, Y−X, 2d·X·Y as ten limbs each, two words of padding
+FLAG_ROW = COMB_SLICES * SLICE_ENTRIES  # row 64: word 0 is the key's flag
+TABLE_ROWS = FLAG_ROW + 1
+KEY_TABLE_BYTES = TABLE_ROWS * ENTRY_WORDS * 4  # 8,320 a key
+
+Niels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def add_niels(p: Point, q: Niels) -> Point:
+    """p + q with q in affine Niels form (y+x, y−x, 2d·x·y): ref10's
+    ge_madd, add-2008-hwcd-3 with Z2 = 1; complete on this curve."""
+    x1, y1, z1, t1 = p
+    yp, ym, t2d = q
+    a = fe.mul(fe.sub(y1, x1), ym)
+    b = fe.mul(fe.add(y1, x1), yp)
+    c = fe.mul(t1, t2d)
+    d = fe.add(z1, z1)
+    e = fe.sub(b, a)
+    f = fe.sub(d, c)
+    g = fe.add(d, c)
+    h = fe.add(b, a)
+    return (fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h))
+
+
+def _identity(batch: int, device) -> Point:
+    zero = torch.zeros((fe.NUM_LIMBS, batch), dtype=torch.int64, device=device)
+    one = fe.const(1, device).expand(fe.NUM_LIMBS, batch)
+    return (zero, one, one, zero)
+
+
+def key_tables_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Comb tables of −A for each key row u8[n,32] → int32[n, 65, 32].
+
+    Row 16t + j holds Σ_i j_i·2^(64i + 16t)·(−A) (j_i bit i of j) as
+    canonical limbs of y+x, y−x and 2d·x·y (words 0:10, 10:20, 20:30);
+    row 64 word 0 is 1 when A decompresses (reference semantics: y taken
+    mod p, −0 decodes as 0) and 0 otherwise, and then every entry holds
+    the identity. The torch twin of ``ed25519_key_tables``."""
+    dev = keys.device
+    n = keys.shape[0]
+    out = torch.zeros((n, TABLE_ROWS, ENTRY_WORDS), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    words = _words(keys.T)
+    y = unpack_fe(words)
+    x, ok = decompress(y, (words[7] >> 31) & 1)
+    nx = fe.neg(x)
+    p: Point = (nx, y, fe.const(1, dev).expand(fe.NUM_LIMBS, n), fe.mul(nx, y))
+    bases = [p]  # 2^(16k)·(−A), k = 0..15
+    for _ in range(1, 16):
+        for _ in range(16):
+            p = point_dbl(p)
+        bases.append(p)
+    entries: List[Point] = []
+    for t in range(COMB_SLICES):
+        row = [_identity(n, dev)]
+        for j in range(1, SLICE_ENTRIES):
+            low = (j & -j).bit_length() - 1
+            b = bases[4 * low + t]
+            row.append(b if j == 1 << low else point_add(row[j & (j - 1)], b))
+        entries += row
+    cat = [torch.cat([e[k] for e in entries], dim=1) for k in range(3)]  # [10, 64·n]
+    zi = fe.invert(cat[2])
+    ax, ay = fe.mul(cat[0], zi), fe.mul(cat[1], zi)
+    niels = [fe.add(ay, ax), fe.sub(ay, ax), fe.mul(fe.mul(ax, ay), fe.const(fe.D2, dev))]
+    ident = [fe.const(1, dev), fe.const(1, dev), fe.const(0, dev)]
+    good = ok.repeat(FLAG_ROW)
+    for k, v in enumerate(niels):
+        v = fe.to_canonical(fe.select(good, v, ident[k].expand_as(v)))
+        out[:, :FLAG_ROW, 10 * k:10 * k + 10] = v.reshape(fe.NUM_LIMBS, FLAG_ROW, n).permute(2, 1, 0).to(torch.int32)
+    out[:, FLAG_ROW, 0] = ok.to(torch.int32)
+    return out
+
+
+def neg_base_encoding() -> bytes:
+    """The encoding of −B (B's x is even, so −B's sign bit is set): its
+    key tables are those of B."""
+    from cometbft_tpu_torch.crypto import purepy
+
+    return (purepy.BY | (1 << 255)).to_bytes(32, "little")
+
+
+_BASE_TABLES = {}
+
+
+def base_tables(device) -> torch.Tensor:
+    """int32[1, 65, 32]: the comb tables of B on ``device``, built once a
+    device by ``key_tables_kernel`` from −B's encoding (its plain version
+    on the CPU)."""
+    key = str(torch.device(device))
+    tab = _BASE_TABLES.get(key)
+    if tab is None:
+        rows = torch.frombuffer(bytearray(neg_base_encoding()), dtype=torch.uint8).view(1, 32).to(device)
+        tab = _BASE_TABLES[key] = key_tables_kernel(rows)
+    return tab
+
+
+def comb_digits(words: torch.Tensor) -> torch.Tensor:
+    """int64[8,B] little-endian u32 words of a scalar → int64[4, 16, B]
+    comb digits: digit [t, c] = Σ_i bit(64i + 16t + c)·2^i."""
+    shifts = torch.arange(32, device=words.device)
+    bits = ((words[:, None, :] >> shifts[None, :, None]) & 1).reshape(4, COMB_SLICES, COMB_COLUMNS, -1)
+    weights = (1 << torch.arange(COMB_TEETH, device=words.device)).view(COMB_TEETH, 1, 1, 1)
+    return (bits * weights).sum(dim=0)
+
+
+def _niels_at(tables: torch.Tensor, rows: torch.Tensor, entries: torch.Tensor) -> Niels:
+    """Entry entries[b] of table rows[b] (tables int32[N, 65, 32]) → Niels
+    [10, B]."""
+    e = tables[rows, entries].to(torch.int64)  # [B, 32]
+    return (e[:, 0:10].T, e[:, 10:20].T, e[:, 20:30].T)
+
+
+def _decompress_r(r_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """R's u32 words int64[8,B] → (x, y, ok): canonical affine limbs, ok
+    when R is an encoding that a point's encode() can give: y (the low 255
+    bits) below p, a root exists, and not x = 0 with the sign bit set."""
+    y = unpack_fe(r_w)
+    sign = (r_w[7] >> 31) & 1
+    yc = fe.to_canonical(y)
+    x, ok = decompress(yc, sign)
+    xc = fe.to_canonical(x)
+    ok = ok & (yc == y).all(dim=0) & ~((xc == 0).all(dim=0) & (sign == 1))
+    return xc, yc, ok
+
+
+def verify_resident_plain(key_tables: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
+    """bool[B] against resident keys: key_tables int32[N,65,32] (see
+    ``key_tables_plain``), idx int32[B] or None (lane order), rsh
+    u8[96,B] rows R, S, h. The torch twin of ``ed25519_verify_resident``:
+    [s]B + [h](−A) by the 16-column comb over B's and the lane's tables,
+    compared with R in projective form. An index out of range, or a key
+    whose flag is 0, rejects."""
+    dev = rsh.device
+    batch = rsh.shape[1]
+    n = key_tables.shape[0]
+    rows = torch.arange(batch, device=dev) if idx is None else idx.to(torch.int64)
     have = (rows >= 0) & (rows < n)
-    safe = torch.where(have, rows, 0)
-    keys = table[safe] if n > 0 else torch.zeros((batch, 32), dtype=torch.uint8, device=table.device)
-    keys = torch.where(have[:, None], keys, 0)
-    return _words(keys.T), have
-
-
-def verify_resident_plain(table: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
-    """bool[B] against resident keys: table u8[N,32], idx int32[B] or
-    None (lane order), rsh u8[96,B] rows R, S, h. The torch twin of
-    ``ed25519_verify_resident``; an index out of range rejects."""
-    a_w, have = _key_rows(table, idx, rsh.shape[1])
+    tables = torch.cat([key_tables, base_tables(dev)])  # row n: B's, for lanes without a key
+    rows = torch.where(have, rows, n)
+    base = torch.full_like(rows, n)
+    flag = tables[rows, FLAG_ROW, 0] != 0
     w = _words(rsh)  # int64[24,B]
-    return _verify_words(a_w, w[0:8], w[8:16], w[16:24]) & have
+    ds, dh = comb_digits(w[8:16]), comb_digits(w[16:24])
+    acc = _identity(batch, dev)
+    for c in range(COMB_COLUMNS - 1, -1, -1):
+        if c < COMB_COLUMNS - 1:
+            acc = point_dbl(acc)
+        for t in range(COMB_SLICES):
+            acc = add_niels(acc, _niels_at(tables, base, SLICE_ENTRIES * t + ds[t, c]))
+            acc = add_niels(acc, _niels_at(tables, rows, SLICE_ENTRIES * t + dh[t, c]))
+    x, y, z, _ = acc
+    rx, ry, r_ok = _decompress_r(w[0:8])
+    match = fe.eq(x, fe.mul(rx, z)) & fe.eq(y, fe.mul(ry, z))
+    return have & flag & r_ok & match
 
 
 def _challenge_words(r_rows: torch.Tensor, a_rows: torch.Tensor, msg: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
@@ -521,8 +677,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # wire, out, B, stream
     "cbt_ed25519_verify_compact": [_P, _P, _I, _P],
-    # table, N, idx, rsh, out, B, stream
-    "cbt_ed25519_verify_resident": [_P, _I, _P, _P, _P, _I, _P],
     # wire, msg, MP, mlen, out, B, stream
     "cbt_ed25519_verify_full_compact": [_P, _P, _I, _P, _P, _I, _P],
     # words, out, B, stream
@@ -532,8 +686,20 @@ _SIGNATURES = {
 }
 
 
+_RESIDENT_SIGNATURES = {
+    # keys, n, out, stream
+    "cbt_ed25519_key_tables": [_P, _I, _P, _P],
+    # key tables, N, idx, rsh, base tables, out, B, group, stream
+    "cbt_ed25519_verify_resident": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
 def _lib():
     return build.load("ed25519_verify", _SIGNATURES)
+
+
+def _resident_lib():
+    return build.load("ed25519_resident", _RESIDENT_SIGNATURES)
 
 
 def _require_rows(t: torch.Tensor, what: str, rows: int, batch: int, device) -> None:
@@ -545,9 +711,11 @@ def _require_rows(t: torch.Tensor, what: str, rows: int, batch: int, device) -> 
 
 
 def _require_table(table: torch.Tensor, idx: Optional[torch.Tensor], batch: int, device) -> None:
-    build.require_cuda_tensor(table, "key table", torch.uint8, 2)
-    if table.shape[1] != 32 or table.device != device:
-        raise ValueError(f"key table: expected [N, 32] on {device}, got {tuple(table.shape)} on {table.device}")
+    build.require_cuda_tensor(table, "key tables", torch.int32, 3)
+    if tuple(table.shape[1:]) != (TABLE_ROWS, ENTRY_WORDS) or table.device != device:
+        raise ValueError(
+            f"key tables: expected [N, {TABLE_ROWS}, {ENTRY_WORDS}] on {device}, got {tuple(table.shape)} on {table.device}"
+        )
     if idx is not None:
         build.require_cuda_tensor(idx, "key index", torch.int32, 1)
         if idx.shape[0] != batch or idx.device != device:
@@ -599,23 +767,46 @@ def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
     return out.bool()
 
 
-def verify_kernel_resident(table: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
-    """bool[B] against resident keys (table u8[N,32]; idx int32[B], or
-    None for lane order; rsh u8[96,B]). On CUDA tensors this launches
-    ``ed25519_verify_resident``, or raises; CPU tensors run
+def key_tables_kernel(keys: torch.Tensor) -> torch.Tensor:
+    """Comb tables int32[n, 65, 32] of each key row u8[n, 32] (see
+    ``key_tables_plain``). On a CUDA tensor this launches
+    ``ed25519_key_tables`` (one thread a key and slice), or raises; a CPU
+    tensor runs ``key_tables_plain``."""
+    global TABLE_LAUNCHES
+    if keys.device.type == "cpu":
+        return key_tables_plain(keys)
+    build.require_cuda_tensor(keys, "key rows", torch.uint8, 2)
+    if keys.shape[1] != 32:
+        raise ValueError(f"key rows: expected [n, 32], got {tuple(keys.shape)}")
+    n = keys.shape[0]
+    out = torch.empty((n, TABLE_ROWS, ENTRY_WORDS), dtype=torch.int32, device=keys.device)
+    if n == 0:
+        return out
+    rc = _resident_lib().cbt_ed25519_key_tables(keys.data_ptr(), n, out.data_ptr(), build.stream_ptr(keys.device))
+    build.check(rc, "ed25519_key_tables")
+    TABLE_LAUNCHES += 1
+    return out
+
+
+def verify_kernel_resident(key_tables: torch.Tensor, idx: Optional[torch.Tensor], rsh: torch.Tensor) -> torch.Tensor:
+    """bool[B] against resident keys (key_tables int32[N,65,32] from
+    ``key_tables_kernel``; idx int32[B], or None for lane order; rsh
+    u8[96,B]). On CUDA tensors this launches ``ed25519_verify_resident``
+    with ``build.group_size`` threads a lane, or raises; CPU tensors run
     ``verify_resident_plain``."""
     global RESIDENT_LAUNCHES
     if rsh.device.type == "cpu":
-        return verify_resident_plain(table, idx, rsh)
+        return verify_resident_plain(key_tables, idx, rsh)
     batch = rsh.shape[1]
     _require_rows(rsh, "R‖S‖h rows", 96, batch, rsh.device)
-    _require_table(table, idx, batch, rsh.device)
+    _require_table(key_tables, idx, batch, rsh.device)
     out = torch.empty(batch, dtype=torch.uint8, device=rsh.device)
     if batch == 0:
         return out.bool()
-    rc = _lib().cbt_ed25519_verify_resident(
-        table.data_ptr(), table.shape[0], _ptr(idx), rsh.data_ptr(), out.data_ptr(),
-        batch, build.stream_ptr(rsh.device),
+    base = base_tables(rsh.device)
+    rc = _resident_lib().cbt_ed25519_verify_resident(
+        key_tables.data_ptr(), key_tables.shape[0], _ptr(idx), rsh.data_ptr(), base.data_ptr(), out.data_ptr(),
+        batch, build.group_size(batch, rsh.device, GROUP_THREADS_PER_SM), build.stream_ptr(rsh.device),
     )
     build.check(rc, "ed25519_verify_resident")
     RESIDENT_LAUNCHES += 1
@@ -731,15 +922,16 @@ def verify_batch(
 
 
 def verify_keyed(
-    table: torch.Tensor,
+    key_tables: torch.Tensor,
     idx: Optional[np.ndarray],
     pk_arr: np.ndarray,
     msgs: Sequence[Optional[bytes]],
     sigs: Sequence[Optional[bytes]],
     device,
 ) -> np.ndarray:
-    """bool[n] against keys resident in ``table`` on ``device``: lane i
-    reads row idx[i], or row i when idx is None (the resident commit).
+    """bool[n] against keys resident on ``device`` as comb tables
+    (``key_tables_kernel``): lane i reads row idx[i], or row i when idx
+    is None (the resident commit).
     pk_arr u8[n,32] holds the same keys on the host, where h is computed
     (reference :959, whatever ``CBFT_TPU_HASH`` says). Chunked through
     ``mesh.dispatch_batch``."""
@@ -747,7 +939,7 @@ def verify_keyed(
     valid_full = np.ones(n, bool)
 
     def chunk(start: int, end: int):
-        lead = [table[start:end], None] if idx is None else [table, idx[start:end]]
+        lead = [key_tables[start:end], None] if idx is None else [key_tables, idx[start:end]]
         rsh, valid = _prepare_rsh_compact(pk_arr[start:end], msgs[start:end], sigs[start:end])
         valid_full[start:end] = valid
         return lead + [rsh]
@@ -757,10 +949,11 @@ def verify_keyed(
 
 def _build_resident(pub_keys: Sequence[bytes], device) -> keystore.KeyStoreEntry:
     """A key-store entry for a validator set: its keys as u8[n,32] rows
-    copied to ``device`` once (reference :867)."""
+    copied to ``device`` once (reference :867), and their comb tables
+    built there once by ``key_tables_kernel``."""
     pk_arr, _ = keystore.key_rows(pub_keys)
     table = torch.from_numpy(pk_arr).to(device)
-    return keystore.new_entry(pub_keys, table, device)
+    return keystore.new_entry(pub_keys, table, device, key_tables_kernel(table))
 
 
 def verify_valset_resident(
@@ -783,5 +976,5 @@ def verify_valset_resident(
         raise ValueError("msgs/sigs must have one entry per validator")
     store = keystore.default_store()
     entry = store.get(valset_id, pub_keys, lambda pks: _build_resident(pks, device), device)
-    out = verify_keyed(entry.table_dev, None, entry.pk_arr, msgs, sigs, device)
+    out = verify_keyed(entry.key_tables, None, entry.pk_arr, msgs, sigs, device)
     return [bool(v) for v in out & entry.pk_ok]

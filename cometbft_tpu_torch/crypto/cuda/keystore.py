@@ -11,7 +11,10 @@ Reference: cometbft_tpu/crypto/tpu/keystore.py. Two routes read it:
   bytes) instead of the keys.
 
 An entry's ``table_dev`` is a ``torch.uint8[n, 32]`` tensor of the keys
-in set order, on the device it was built for. Entries are keyed on the
+in set order, on the device it was built for; ``key_tables`` beside it
+holds what the resident kernel reads, each key's comb tables and
+validity flag (``ed25519_batch.key_tables_kernel``, int32[n, 65, 32],
+8,320 bytes a key), built once at upload. Entries are keyed on the
 valset id AND that device, resolved to its index (a bare ``"cuda"`` is
 the current card): a lookup from another device misses and builds its
 own table, so a table is never read on a device it was not
@@ -49,6 +52,7 @@ class KeyStoreEntry:
         "pk_ok",            # np.bool_[n], False for a malformed key
         "index",            # dict: key bytes -> row of table_dev
         "table_dev",        # torch.uint8[n, 32] on ``device``
+        "key_tables",       # torch.int32[n, 65, 32] on ``device``, or None
         "n",                # key count
         "hits",             # uses since upload (0 at eviction = thrash)
         "pins",             # in-flight dispatches holding LRU immunity
@@ -257,9 +261,10 @@ class DeviceKeyStore:
             }
 
 
-def new_entry(pub_keys: Sequence, table_dev: torch.Tensor, device) -> KeyStoreEntry:
+def new_entry(pub_keys: Sequence, table_dev: torch.Tensor, device, key_tables: Optional[torch.Tensor] = None) -> KeyStoreEntry:
     """An unregistered entry for ``pub_keys`` in set order; the index maps
-    each well-formed key to its first row."""
+    each well-formed key to its first row. ``key_tables`` are the rows'
+    comb tables, which the resident and indexed routes verify against."""
     pk_arr, pk_ok = key_rows(pub_keys)
     e = KeyStoreEntry()
     e.valset_id = b""
@@ -273,6 +278,7 @@ def new_entry(pub_keys: Sequence, table_dev: torch.Tensor, device) -> KeyStoreEn
         if pk_ok[i]:
             e.index.setdefault(pk_arr[i].tobytes(), i)
     e.table_dev = table_dev
+    e.key_tables = key_tables
     e.n = len(pk_arr)
     e.hits = 0
     e.pins = 0
@@ -301,6 +307,6 @@ def verify_batch_indexed(pub_keys: Sequence, msgs: Sequence, sigs: Sequence, dev
         return None
     idx = np.fromiter((entry.index[_key_bytes(pk)] for pk in pub_keys), np.int32, count=n)
     with _default.pinned(entry.valset_id, device):
-        out = ed25519_batch.verify_keyed(entry.table_dev, idx, entry.pk_arr[idx], msgs, sigs, device)
+        out = ed25519_batch.verify_keyed(entry.key_tables, idx, entry.pk_arr[idx], msgs, sigs, device)
     _default.note_indexed(n)
     return [bool(v) for v in out]

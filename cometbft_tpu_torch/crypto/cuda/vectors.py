@@ -153,6 +153,56 @@ def device_hash_cases(seed: int = 11) -> List[Case]:
     return out
 
 
+# (label, key bytes, R bytes, s, h, verdict): one lane of the resident route's
+# R ‖ S ‖ h rows, with the key it is verified against
+ResidentCase = Tuple[str, bytes, bytes, int, int, bool]
+
+
+def _no_root_y() -> int:
+    y = 2
+    while purepy._recover_x(y, 0) is not None:
+        y += 1
+    return y
+
+
+def resident_r_cases() -> List[ResidentCase]:
+    """Lanes for each way R can fail the projective compare that replaces
+    encode-and-compare, on keys whose result is known: with the identity
+    key and s = 0, [s]B + [h](−A) is the identity, so R = y 1 accepts and
+    R with y = p + 1 (not below p), with y = 1 and the sign bit set (x = 0
+    negative), and with a y that has no root reject; with a key A, s = 5
+    and h = 0 the result is 5·B, so its encoding accepts and the encoding
+    with the sign bit flipped (x mismatch) or of 6·B (a valid R that does
+    not match) rejects. The verdict is the byte compare of the reference."""
+    p = purepy.P
+    ident = (1).to_bytes(32, "little")
+    key = ed.gen_priv_key_from_secret(b"resident-r").pub_key().bytes()
+    five = purepy.pt_encode(purepy.pt_mul(5, purepy.B))
+    rows = [
+        ("r_identity", ident, ident, 0, 7),
+        ("r_y_not_below_p", ident, (p + 1).to_bytes(32, "little"), 0, 7),
+        ("r_x_zero_sign_set", ident, (1 | 1 << 255).to_bytes(32, "little"), 0, 7),
+        ("r_no_root", ident, _no_root_y().to_bytes(32, "little"), 0, 7),
+        ("r_match", key, five, 5, 0),
+        ("r_sign_flipped", key, _flip(five, 31, 0x80), 5, 0),
+        ("r_other_point", key, purepy.pt_encode(purepy.pt_mul(6, purepy.B)), 5, 0),
+    ]
+    out: List[ResidentCase] = []
+    for label, pk, r, s_, h in rows:
+        a = purepy.pt_decode(pk)
+        want = a is not None and purepy.pt_encode(
+            purepy.pt_add(purepy.pt_mul(s_, purepy.B), purepy.pt_mul(h, purepy.pt_neg(a)))
+        ) == r
+        out.append((label, pk, r, s_, h, want))
+    return out
+
+
+def resident_rows(cases: List[ResidentCase]) -> np.ndarray:
+    """The R ‖ S ‖ h rows u8[96, B] of ``resident_r_cases`` lanes."""
+    cols = [c[2] + c[3].to_bytes(32, "little") + c[4].to_bytes(32, "little") for c in cases]
+    return np.frombuffer(b"".join(cols), np.uint8).reshape(len(cases), 96).T.copy()
+
+
 # --- secp256k1 ------------------------------------------------------------------
 
 
@@ -177,7 +227,14 @@ def secp256k1_cases(seed: int = 13) -> Tuple[List[Case], List[WireCase]]:
     Wire level, with the verdict each must give: Q with x = n + k
     (x³ + 7 a square), u1 = 0, u2 = 1 and r = k accepts through the r + n
     branch with flags bit 1 set and rejects with it clear; Q = G, u1 = 1,
-    u2 = n - 1 makes R' the point at infinity and rejects."""
+    u2 = n - 1 makes R' the point at infinity and rejects. Then lanes
+    whose partial sums (the GLV terms |k1|·Q and |k2|·λQ, and u1's two
+    halves times G and 2^128·G) are equal, opposite or zero: Q = G with
+    u1 = u2 = 5 (equal terms, R' = 10·G), with u1 = n − 5 and u2 = 5
+    (opposite, R' infinite), with u2 = λ (k1 = 0) and with u2 = 1 + λ, a
+    key with u2 = 0 and with u1 = 0, and u2 = n + 3 (reduced mod n on the
+    card), each with r = x(R') so that it accepts, or, for R' infinite,
+    rejects."""
     rng = np.random.default_rng(seed)
     n, p = secp.N, secp.P
     keys, i = [], 0
@@ -222,6 +279,27 @@ def secp256k1_cases(seed: int = 13) -> Tuple[List[Case], List[WireCase]]:
         ("r_plus_n_flag_clear", n + k, k, 0, 1, 0, False),
         ("infinity", secp.GX, 1, 1, n - 1, (secp.GY & 1) | 2, False),
     ]
+    lam = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+    g = (secp.GX, secp.GY)
+    q = secp._decompress(pks[2])
+    for label, pt, u1, u2 in (
+        ("equal_terms", g, 5, 5),
+        ("opposite_terms", g, n - 5, 5),
+        ("u2_lambda", g, 0, lam),
+        ("u2_one_plus_lambda", g, 7, 1 + lam),
+        ("u2_zero", q, 11, 0),
+        ("u1_zero", q, 0, 12345),
+        ("u2_above_n", g, 0, n + 3),
+    ):
+        r_pt = secp._joint_mul(u1, u2 % n, pt)
+        flags = pt[1] & 1
+        if r_pt is None:
+            wire.append((label, pt[0], 1, u1, u2, flags | 2, False))
+            continue
+        x = r_pt[0]
+        r = x if x < n else x - n
+        flags |= 2 if r + n < p else 0
+        wire.append((label, pt[0], r, u1, u2, flags, True))
     return cases, wire
 
 

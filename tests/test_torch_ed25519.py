@@ -8,8 +8,10 @@
   tests/test_tpu_ed25519.py compiles) and of the reference's
   crypto/ed25519.py verify, on the contract's edge cases and a mixed batch
   of 33;
-* keys, signatures and the limb constants written into the CUDA source
-  equal their reference or their definition;
+* keys, signatures and the limb constants written into the CUDA sources
+  (``ed25519_verify.cu`` and ``ed25519_resident.cu``, whose comb layout
+  also equals the plain twin's) equal their reference or their
+  definition;
 * the word wire (``CBFT_TPU_WIRE=words``): the port's ``prepare_batch``
   equals the reference's u32[32, B] byte for byte; ``verify_words_plain``
   (the CPU twin of ``ed25519_verify_words``) gives the verdicts of the
@@ -139,18 +141,25 @@ def check_keys_match_reference():
 
 
 def check_cuda_constants():
-    src = os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", "ed25519_verify.cu")
-    with open(src, encoding="utf-8") as f:
-        text = f.read()
     want = {
         "K_D": fe.D, "K_D2": fe.D2, "K_SQRT_M1": fe.SQRT_M1,
         "K_BX": purepy.BX, "K_BY": purepy.BY,
     }
-    for name, value in want.items():
-        m = re.search(name + r"\[10\] = \{([^}]*)\}", text)
-        assert m, name
-        limbs = [int(v, 16) for v in m.group(1).replace("\n", " ").split(",")]
-        assert limbs == fe.int_to_limbs(value), name
+    for source, names in (("ed25519_verify.cu", want), ("ed25519_resident.cu", ("K_D", "K_D2", "K_SQRT_M1"))):
+        src = os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", source)
+        with open(src, encoding="utf-8") as f:
+            text = f.read()
+        for name in names:
+            m = re.search(name + r"\[10\] = \{([^}]*)\}", text)
+            assert m, (source, name)
+            limbs = [int(v, 16) for v in m.group(1).replace("\n", " ").split(",")]
+            assert limbs == fe.int_to_limbs(want[name]), (source, name)
+    # the resident source's table layout is the plain twin's
+    with open(os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", "ed25519_resident.cu"), encoding="utf-8") as f:
+        text = f.read()
+    for name, value in (("COMB_SLICES", ed25519_batch.COMB_SLICES), ("COMB_COLUMNS", ed25519_batch.COMB_COLUMNS),
+                        ("SLICE_ENTRIES", ed25519_batch.SLICE_ENTRIES), ("ENTRY_WORDS", ed25519_batch.ENTRY_WORDS)):
+        assert re.search(r"#define %s (\d+)" % name, text).group(1) == str(value), name
 
 
 def check_word_wire(monkeypatch):

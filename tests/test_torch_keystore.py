@@ -8,12 +8,21 @@
   ``crypto/ed25519.py``: the reference's store tests fail on the
   reference itself (ROADMAP C-ref 1), so nothing here reaches the
   reference's keystore, mesh or ``verify_valset_resident``;
+* the key tables: ``key_tables_plain`` (the CPU twin of the CUDA kernel
+  ``ed25519_key_tables``) holds, for seeded keys, a key with y ≥ p, the
+  −0 key, a torsioned key and a key that does not decompress (flag 0,
+  identity entries), the affine Niels form of every comb multiple
+  Σ_i j_i·2^(64i + 16t)·(−A) computed with the port's pure-Python
+  Ed25519 (``crypto/purepy.py``); B's tables are those of −B's encoding;
 * the kernel: ``verify_resident_plain`` (the CPU twin of the CUDA kernel
-  ``ed25519_verify_resident``) gives the verdicts of the reference's
-  jitted ``verify_kernel_resident`` and ``verify_kernel_indexed``, called
-  directly at 64 lanes, on identical keys and rows, repeated rows and an
-  index out of range included; the per-flush staging equals the
-  reference's byte for byte;
+  ``ed25519_verify_resident``) over those tables gives the verdicts of
+  the reference's jitted ``verify_kernel_resident`` and
+  ``verify_kernel_indexed``, called directly at 64 lanes, on identical
+  keys and rows, repeated rows and an index out of range included, and on
+  lanes for every way R can fail the projective compare (y not below p,
+  no root, x = 0 with the sign bit set, a valid R that does not match,
+  the sign flipped); the per-flush staging equals the reference's byte
+  for byte;
 * the commit path: ``ValidatorSet.verify_commit*`` with
   ``backend=lambda: GPUBatchVerifier(device="cpu")`` takes the resident
   route (one upload, then hits, never the keyed wire), and its verdicts
@@ -43,7 +52,7 @@ from cometbft_tpu.crypto.tpu import ed25519_batch as ref_batch
 from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
-from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore
+from cometbft_tpu_torch.crypto.cuda import ed25519_batch, field, keystore, vectors
 from cometbft_tpu_torch.proto.gogo import Timestamp
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -97,6 +106,7 @@ def check_rotation_lru_and_other_devices(store):
     e = store.get(vid_a, pks_a, _build(CPU), CPU)
     assert e.table_dev.device == CPU and e.table_dev.dtype == torch.uint8
     assert e.table_dev.tolist() == [list(k) for k in pks_a]
+    assert torch.equal(e.key_tables, ed25519_batch.key_tables_plain(e.table_dev))
     base = store.snapshot()["stats"]
     assert store.get(vid_a, pks_a, _build(CPU), CPU) is e
     s = store.snapshot()["stats"]
@@ -188,6 +198,51 @@ def check_staleness_and_indexed_route(store, monkeypatch):
     assert store.snapshot()["generation"] == gen0 + 1
 
 
+def _affine(pt):
+    zi = pow(pt[2], purepy.P - 2, purepy.P)
+    return pt[0] * zi % purepy.P, pt[1] * zi % purepy.P
+
+
+def check_key_tables_match_pure_python():
+    """Every entry of key_tables_plain against pure-Python multiples."""
+    p = purepy.P
+    torsioned = vectors._torsioned_signature(0x1F2E3D4C, b"torsion-", True)[1]
+    keys = [ed.gen_priv_key_from_secret(b"tables-%d" % i).pub_key().bytes() for i in range(2)]
+    keys += [
+        (p + 1).to_bytes(32, "little"),  # y >= p: the identity, y taken mod p
+        (1 | 1 << 255).to_bytes(32, "little"),  # -0: x = 0 with the sign bit set
+        torsioned,
+        vectors._no_root_y().to_bytes(32, "little"),  # no root: flag 0
+    ]
+    arr = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, 32).copy()
+    tab = ed25519_batch.key_tables_plain(torch.from_numpy(arr))
+    assert tab.dtype == torch.int32 and tuple(tab.shape) == (len(keys), 65, 32)
+    assert ed25519_batch.KEY_TABLE_BYTES == 8320
+    limbs = lambda row: field.limbs_to_int(row)  # noqa: E731
+    for k, pk in enumerate(keys):
+        a = purepy.pt_decode(pk)
+        assert tab[k, 64].tolist() == [int(a is not None)] + [0] * 31, k
+        for t in range(4):
+            for j in range(16):
+                e = tab[k, 16 * t + j].tolist()
+                assert e[30:] == [0, 0]
+                if a is None:
+                    assert (limbs(e[0:10]), limbs(e[10:20]), limbs(e[20:30])) == (1, 1, 0)
+                    continue
+                m = sum(((j >> i) & 1) << (64 * i + 16 * t) for i in range(4))
+                x, y = _affine(purepy.pt_mul(m, purepy.pt_neg(a)))
+                assert (limbs(e[0:10]), limbs(e[10:20]), limbs(e[20:30])) == (
+                    (y + x) % p, (y - x) % p, 2 * field.D * x * y % p), (k, t, j)
+    assert keys[-1] and purepy.pt_decode(keys[-1]) is None and purepy.pt_decode(keys[3]) is not None
+    base = ed25519_batch.base_tables("cpu")
+    assert purepy.pt_decode(ed25519_batch.neg_base_encoding()) == purepy.pt_neg(purepy.B)
+    assert torch.equal(base, ed25519_batch.key_tables_plain(
+        torch.frombuffer(bytearray(ed25519_batch.neg_base_encoding()), dtype=torch.uint8).view(1, 32)))
+    yp, ym = (field.limbs_to_int(base[0, 17, k:k + 10].tolist()) for k in (0, 10))  # slice 1, j = 1
+    half = pow(2, p - 2, p)
+    assert _affine(purepy.pt_mul(1 << 16, purepy.B)) == ((yp - ym) * half % p, (yp + ym) * half % p)
+
+
 def _reference_rows():
     """64 lanes over 16 keys: shuffled rows with repeats, a corrupted S
     and R, an absent lane, and (for the index) one row out of range."""
@@ -212,17 +267,32 @@ def check_resident_kernel_matches_reference():
     ref_rsh, ref_valid = ref_batch._prepare_rsh_compact(lane_keys, msgs, sigs)
     assert rsh.tobytes() == ref_rsh.tobytes() and valid.tolist() == ref_valid.tolist()
     want = [m is not None and purepy.ed25519_verify(k.tobytes(), m, s) for k, m, s in zip(lane_keys, msgs, sigs)]
+    # lanes 56..62: every way R can fail the projective compare
+    r_cases = vectors.resident_r_cases()
+    at = _REF_LANES - 1 - len(r_cases)
+    r_keys = np.frombuffer(b"".join(c[1] for c in r_cases), np.uint8).reshape(-1, 32)
+    lane_keys = lane_keys.copy()
+    lane_keys[at:at + len(r_cases)] = r_keys
+    rsh[:, at:at + len(r_cases)] = vectors.resident_rows(r_cases)
+    valid[at:at + len(r_cases)] = True
+    want[at:at + len(r_cases)] = [c[5] for c in r_cases]
     # lane order (the resident commit): row b for lane b
-    port = ed25519_batch.verify_resident_plain(torch.from_numpy(lane_keys), None, torch.from_numpy(rsh)).numpy()
+    tables = ed25519_batch.key_tables_plain(torch.from_numpy(lane_keys))
+    port = ed25519_batch.verify_resident_plain(tables, None, torch.from_numpy(rsh)).numpy()
     rsh_words = np.ascontiguousarray(np.ascontiguousarray(rsh.T).view("<u4").T)
     ref = np.asarray(ref_batch.verify_kernel_resident(ref_batch._le_words(lane_keys), rsh_words))
     assert port.tolist() == ref.tolist()
     assert (port & valid).tolist() == want
-    # by index (the indexed flush), one index out of range
+    assert port[at:at + len(r_cases)].tolist() == [c[5] for c in r_cases] == [True, False, False, False, True, False, False]
+    # by index (the indexed flush), one index out of range; the R lanes
+    # index the rows appended after the set's
+    table_keys = np.concatenate([pk_arr, r_keys])
     idx = rows.copy()
-    idx[20] = 16 + 5
-    port = ed25519_batch.verify_resident_plain(torch.from_numpy(pk_arr), torch.from_numpy(idx), torch.from_numpy(rsh)).numpy()
-    ref = np.asarray(ref_batch.verify_kernel_indexed(pk_arr, idx, rsh))
+    idx[at:at + len(r_cases)] = np.arange(len(pk_arr), len(table_keys))
+    idx[20] = len(table_keys) + 5
+    tables = ed25519_batch.key_tables_plain(torch.from_numpy(table_keys))
+    port = ed25519_batch.verify_resident_plain(tables, torch.from_numpy(idx), torch.from_numpy(rsh)).numpy()
+    ref = np.asarray(ref_batch.verify_kernel_indexed(table_keys, idx, rsh))
     assert port.tolist() == ref.tolist()
     assert not port[20] and want[20]
     want[20] = False
@@ -230,7 +300,7 @@ def check_resident_kernel_matches_reference():
     # a negative index rejects too (the reference would wrap it)
     idx[21] = -1
     assert not ed25519_batch.verify_resident_plain(
-        torch.from_numpy(pk_arr), torch.from_numpy(idx[:24]), torch.from_numpy(np.ascontiguousarray(rsh[:, :24]))
+        tables, torch.from_numpy(idx[:24]), torch.from_numpy(np.ascontiguousarray(rsh[:, :24]))
     )[21]
 
 
@@ -388,6 +458,7 @@ def test_keystore_and_resident_routes(monkeypatch):
         with monkeypatch.context() as m:
             check_staleness_and_indexed_route(store, m)
         store.invalidate()
+        check_key_tables_match_pure_python()
         check_resident_kernel_matches_reference()
         with monkeypatch.context() as m:
             check_commit_takes_the_resident_route(store, m)

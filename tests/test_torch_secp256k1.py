@@ -2,7 +2,14 @@
 
 * the field: every operation of cometbft_tpu_torch/crypto/cuda/secp_field.py
   (the CPU twin of csrc/fe256k1.cuh) against Python ints, from the largest
-  carried inputs, and the limb constants written into the CUDA sources;
+  carried inputs, and the constants written into the CUDA sources (limbs
+  of p, n and β, the tables d·G and d·2^128·G, the GLV lattice words);
+* GLV: λ³ ≡ 1 (mod n), β³ ≡ 1 (mod p), λ·G = (β·Gx, Gy), the basis
+  vectors in the lattice and g1, g2 from their definitions; ``glv_split``
+  (the plain twin of the kernel's split) against Python ints on seeded and
+  edge scalars (0, 1, n − 1, λ, near the rounding boundaries), with
+  k1 + k2·λ ≡ k (mod n) and |k1|, |k2| < 2^128; the reduction mod n and
+  the signed radix-16 digits;
 * host packing: the port's ``prepare_batch`` u8[128, B], viewed as
   little-endian u32 rows, equals the reference's u32[32, B] byte for byte,
   with the same flags and validity mask;
@@ -11,7 +18,8 @@
   ``verify_kernel`` (called directly, at the reference's 64-lane padded
   shape) and of the reference's ``PubKeySecp256k1.verify_signature`` on
   ``vectors.secp256k1_cases`` and 40 mixed lanes, the wire-level r + n
-  and infinity lanes included;
+  and infinity lanes included, and lanes whose GLV and u1 partial sums
+  are equal, opposite or zero;
 * keys: addresses, public keys and RFC 6979 signatures equal the
   reference's; a secp256k1 ``PublicKey`` round-trips the proto;
 * a 12-validator secp256k1 ``ValidatorSet`` carried across with
@@ -139,10 +147,67 @@ def check_cuda_constants():
     assert _c_array(hdr, "K_P") == [(P >> (26 * i)) & fe.MASK for i in range(10)]
     assert _c_array(hdr, "K_SUB") == [32 * ((P >> (26 * i)) & fe.MASK) for i in range(10)]
     assert _c_array(cu, "K_N") == fe.int_to_limbs(N)
-    g = [c for pt in secp256k1_batch.g_multiples()[1:] for c in pt[:2]]
-    assert g[0:2] == [ref_secp._GX, ref_secp._GY]
-    assert _c_array(cu, "K_G") == [limb for c in g for limb in fe.int_to_limbs(c)]
+    assert _c_array(cu, "K_BETA") == fe.int_to_limbs(secp256k1_batch.BETA)
+    # d·G and d·2^128·G, d = 0..8, each from the reference's G by the
+    # port's scalar multiplication, checked on the curve
+    g, g128 = secp256k1_batch.g_tables()
+    assert g[1][:2] == (ref_secp._GX, ref_secp._GY) and g[0] == g128[0] == (0, 1, 0)
+    for tab, base in ((g, 1), (g128, 1 << 128)):
+        for d, (x, y, z) in enumerate(tab[1:], start=1):
+            assert (x, y) == secp._point_mul(d * base, (secp.GX, secp.GY)) and z == 1
+            assert (y * y - x ** 3 - 7) % P == 0
+    assert _c_array(cu, "K_GTAB") == [limb for tab in (g, g128) for pt in tab for c in pt for limb in fe.int_to_limbs(c)]
+
+    def words(v, n):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
+
+    sb = secp256k1_batch
+    for name, value, n in (("K_N_WORDS", N, 8), ("K_GLV_G1", sb.GLV_G1, 8), ("K_GLV_G2", sb.GLV_G2, 8),
+                           ("K_GLV_A1", sb.GLV_A1, 4), ("K_GLV_A2", sb.GLV_A2, 5), ("K_GLV_MB1", -sb.GLV_B1, 4),
+                           ("K_GLV_B2", sb.GLV_B2, 4)):
+        assert _c_array(cu, name) == words(value, n), name
     assert (1 << 260) % P == (0x400 << 26) + 0x3D10 and (1 << 256) % P == 0x1000003D1
+
+
+def check_glv_constants_and_split():
+    """λ, β and the lattice from their definitions; the plain split against
+    Python ints on seeded and edge scalars."""
+    sb = secp256k1_batch
+    lam, beta = sb.LAMBDA, sb.BETA
+    assert pow(lam, 3, N) == 1 and lam != 1 and pow(beta, 3, P) == 1 and beta != 1
+    assert secp._point_mul(lam, (secp.GX, secp.GY)) == (beta * secp.GX % P, secp.GY)
+    # the basis vectors lie in the lattice {(a, b): a + b·λ ≡ 0 (mod n)} and are short
+    for a, b in ((sb.GLV_A1, sb.GLV_B1), (sb.GLV_A2, sb.GLV_B2)):
+        assert (a + b * lam) % N == 0 and abs(a) < 2**129 and abs(b) < 2**129
+    assert sb.GLV_A1 * sb.GLV_B2 - sb.GLV_A2 * sb.GLV_B1 == N  # a basis: determinant n
+    assert sb.GLV_G1 == (sb.GLV_B2 * 2**384 + N // 2) // N
+    assert sb.GLV_G2 == (-sb.GLV_B1 * 2**384 + N // 2) // N
+    rng = np.random.default_rng(29)
+    ks = [0, 1, 2, N - 1, N - 2, lam, N - lam, (1 + lam) % N, 2**128, 2**128 - 1, 2**255, N // 2]
+    ks += [int.from_bytes(rng.bytes(32), "little") % N for _ in range(48)]
+    # near the rounding boundaries of c1 and c2: k·g / 2^384 close to m + 1/2
+    for g_i in (sb.GLV_G1, sb.GLV_G2):
+        for m in (1, 7, 2**64 + 3, 2**126 + 5):
+            k = ((2 * m + 1) * 2**383) // g_i
+            ks += [v for v in (k - 1, k, k + 1) if 0 <= v < N]
+    words = torch.tensor([[(k >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for k in ks], dtype=torch.int64).T
+    m1, neg1, m2, neg2 = sb.glv_split(words)
+    for i, k in enumerate(ks):
+        k1, k2 = sb.glv_split_int(k)
+        assert (k1 + k2 * lam - k) % N == 0 and abs(k1) < 2**128 and abs(k2) < 2**128, k
+        got1 = sum(int(m1[j, i]) << (32 * j) for j in range(4)) * (-1 if neg1[i] else 1)
+        got2 = sum(int(m2[j, i]) << (32 * j) for j in range(4)) * (-1 if neg2[i] else 1)
+        assert (got1, got2) == (k1, k2), k
+    assert sb.glv_split_int(lam) == (0, 1) and sb.glv_split_int(0) == (0, 0)
+    # u2 reduced mod n, and the signed radix-16 digits
+    big = [N, N + 1, 2**256 - 1, N - 1, 0, 5]
+    w = torch.tensor([[(k >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for k in big], dtype=torch.int64).T
+    red = sb.reduce_mod_n(w)
+    assert [sum(int(red[j, i]) << (32 * j) for j in range(8)) for i in range(len(big))] == [k % N for k in big]
+    digits = sb.signed_digits(words[:4])
+    assert int(digits.min()) >= -7 and int(digits.max()) <= 8
+    for i, k in enumerate(ks):
+        assert sum(int(digits[j, i]) * 16**j for j in range(sb.NUM_WINDOWS)) == k % 2**128
 
 
 def _columns(cases):
@@ -205,7 +270,7 @@ def check_verdicts_match_reference():
     cpu = _cpu(pks, msgs, sigs)
     assert cpu == _ref_cpu(pks, msgs, sigs)
     assert (np.array(plain[:n]) & valid).tolist() == cpu
-    assert plain[n:] == w_want == [True, False, False]
+    assert plain[n:] == w_want == [True, False, False, True, False, True, True, True, True, True]
     assert all(ok == c[0].startswith("valid") for c, ok in zip(sig_cases, cpu))
     assert cpu.count(False) > len(cases) - 6
     # the wrapper on a CPU tensor runs the plain version
@@ -382,6 +447,7 @@ def check_chunk_edge(monkeypatch):
 def test_secp256k1_matches_reference(monkeypatch):
     check_field_ops()
     check_cuda_constants()
+    check_glv_constants_and_split()
     check_packing_matches_reference()
     check_verdicts_match_reference()
     check_keys_match_reference()
