@@ -7,9 +7,13 @@ Each turn starts one process per checkout, other then this, then this
 then other, and so on for TURNS turns (default 4). A process runs on its
 own tree (PYTHONPATH and working directory), builds that tree's kernels
 if they are not built yet, makes chip_smoke.py's seeded 180-validator
-Ed25519 and secp256k1 sets and their commits, warms up, and takes the
-median host wall of ValidatorSet.verify_commit on the card: the Ed25519
-set on the resident route (hits) and the secp256k1 set (add()/verify()).
+Ed25519 and secp256k1 sets and their commits and its 180 sr25519 lanes,
+warms up, and takes the median host wall on the card of
+ValidatorSet.verify_commit for the Ed25519 set on the resident route
+(hits) and on the keyed compact route (key store bypassed: the keys ride
+the wire to ed25519_verify_compact), of the secp256k1 set's
+(add()/verify()), and of a new_batch_verifier("gpu") flush of the sr25519
+lanes.
 Comparing two versions within one call, in turns, gives both the same
 card and the same load on the host, whose Python time moves by up to 2x
 between calls.
@@ -29,17 +33,19 @@ import sys
 
 import torch
 
-ED_RUNS, SECP_RUNS = 40, 20
+ED_RUNS, SECP_RUNS, SR_RUNS = 40, 20, 5
 
 CHILD = f"""
 import json, statistics, time
 import chip_smoke as cs
+from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import secp256k1 as secp
-from cometbft_tpu_torch.crypto.cuda import build
+from cometbft_tpu_torch.crypto.cuda import build, keystore
 
 build.build_all()
 vals, block_id, commit = cs.make_valset_and_commit()
 svals, sblock_id, scommit = cs.make_valset_and_commit(secp, b"cosmoshub-secp-val-%d")
+sr_lanes = cs.make_sr_lanes(commit)
 
 
 def p50(fn, runs):
@@ -53,9 +59,21 @@ def p50(fn, runs):
     return statistics.median(times)
 
 
+def keyed():
+    real = cryptobatch.resident_commit_eligible, keystore.verify_batch_indexed
+    cryptobatch.resident_commit_eligible = lambda n_present, backend=None: False
+    keystore.verify_batch_indexed = lambda *args: None
+    try:
+        vals.verify_commit(cs.CHAIN_ID, block_id, commit.height, commit)
+    finally:
+        cryptobatch.resident_commit_eligible, keystore.verify_batch_indexed = real
+
+
 ed = p50(lambda: vals.verify_commit(cs.CHAIN_ID, block_id, commit.height, commit), {ED_RUNS})
+compact = p50(keyed, {ED_RUNS})
 sp = p50(lambda: svals.verify_commit(cs.CHAIN_ID, sblock_id, scommit.height, scommit), {SECP_RUNS})
-print(json.dumps({{"ed25519": ed, "secp256k1": sp}}))
+sr = p50(lambda: cs.flush(sr_lanes, None), {SR_RUNS})
+print(json.dumps({{"ed25519": ed, "compact": compact, "secp256k1": sp, "sr25519": sr}}))
 """
 
 
@@ -80,13 +98,14 @@ def main() -> int:
                 return 1
             res = json.loads(run.stdout.strip().splitlines()[-1])
             results[name].append(res)
-            print(f"ab: turn {t} {name:5s} verify_commit p50 Ed25519 resident {res['ed25519']:.3f} ms, "
-                  f"secp256k1 {res['secp256k1']:.3f} ms, 180 validators [{card}]", flush=True)
+            print(f"ab: turn {t} {name:5s} p50 verify_commit Ed25519 resident {res['ed25519']:.3f} ms, "
+                  f"Ed25519 keyed compact route {res['compact']:.3f} ms, secp256k1 {res['secp256k1']:.3f} ms; "
+                  f"sr25519 flush {res['sr25519']:.3f} ms; 180 lanes [{card}]", flush=True)
     for name, rows in results.items():
-        ed = statistics.median(r["ed25519"] for r in rows)
-        sp = statistics.median(r["secp256k1"] for r in rows)
-        print(f"ab: {name:5s} ({trees[name]}) median of {len(rows)} processes: Ed25519 resident {ed:.3f} ms, "
-              f"secp256k1 {sp:.3f} ms [{card}]")
+        med = {k: statistics.median(r[k] for r in rows) for k in ("ed25519", "compact", "secp256k1", "sr25519")}
+        print(f"ab: {name:5s} ({trees[name]}) median of {len(rows)} processes: verify_commit Ed25519 resident "
+              f"{med['ed25519']:.3f} ms, Ed25519 keyed compact route {med['compact']:.3f} ms, secp256k1 "
+              f"{med['secp256k1']:.3f} ms; sr25519 flush {med['sr25519']:.3f} ms [{card}]")
     return 0
 
 

@@ -10,16 +10,19 @@ goes wrong:
              each library's own, and the compiler's register, stack and
              spill report;
 2. kernels — hold each kernel against its plain torch version on the card:
-             Ed25519 (compact wire) on the contract's edge cases and a
-             mixed batch (and against the CPU verifier); the key table
+             Ed25519 (compact wire) on the contract's edge cases, a mixed
+             batch and every way R can fail the projective compare
+             (vectors.resident_r_cases as wire lanes with their keys, and
+             as signatures), and against the CPU verifier, then the same
+             lanes tiled to 6,000 at 2 threads a lane; the key table
              kernel on the 180 keys and the edge keys (y >= p, -0, one
              that does not decompress, torsioned), table for table; the
              resident kernel over the kernel's tables at B=180 in lane
              order and by a shuffled index with repeats and one row out
              of range, on the edge cases and every way R can fail the
              projective compare, and at 6,000 lanes by index; the
-             device-hash kernel on the edge, device-hash and mixed cases
-             (and against the CPU verifier), which holds the card's
+             device-hash kernel on the edge, device-hash, mixed and R
+             cases (and against the CPU verifier), which holds the card's
              SHA-512 and reduction mod L to exactness (torsioned keys whose
              verdict changes with h + L); SHA-256
              at message lengths 0, 55, 56, 64, 65 and 200 in fixed and
@@ -32,10 +35,11 @@ goes wrong:
              phase 4's group sweep runs both kernels at 1, 2 and 4);
              sr25519_verify on the
              sr25519 contract's cases (every way a ristretto decode
-             fails) and 40 mixed lanes (and against the CPU verifier);
+             fails) and 40 mixed lanes (and against the CPU verifier),
+             and at 6,000 lanes at 2 threads a lane;
              ed25519_verify_words and ed25519_verify_full_words on the
-             edge, device-hash and mixed cases (and against the CPU
-             verifier);
+             edge, device-hash, mixed and R cases (the word kernel on the
+             R wire lanes too; and against the CPU verifier);
 3. main    — a 180-validator set (the Cosmos Hub's active set) with seeded
              keys and powers and a commit that all of them sign, driven
              through the entry points a node calls, path by path, each
@@ -110,12 +114,15 @@ goes wrong:
              beside its plain version and its bound (the larger of bytes
              over 3.35 TB/s and 32-bit integer operations over the card's
              integer rate), at the main path's shapes (B=180 and 16,384;
-             4,096 too for secp256k1, 8,192 for sr25519, 180 keys for the
-             key tables), where each kernel's output must again equal its
-             plain version's exactly; and the two grouped kernels at each
-             group size (1, 2 and 4 threads a lane) at B=180 and 16,384,
-             through their C entry points, each output equal to the
-             wrapper's.
+             4,096 too for secp256k1, 8,192 for sr25519 and for
+             ed25519_verify_compact, 180 keys for the key tables), where
+             each kernel's output must again equal its plain version's
+             exactly; and the grouped kernels at each group size (1, 2
+             and 4 threads a lane) through their C entry points, each
+             output equal to the wrapper's: the resident and secp256k1
+             kernels at B=180, 4,096 and 16,384, the two wire-key cores
+             (ed25519_verify_compact at 180, 8,192 and 16,384,
+             sr25519_verify at 180 and 8,192).
 
 Each phase prints its seconds ("phase:" lines).
 
@@ -367,10 +374,81 @@ def ed25519_core_ops_per_lane() -> int:
     """32-bit integer instructions that one lane of the first design's core
     (verify_core: the compact, full-compact and two word kernels) needs at
     least, whatever its data (the loop has no early exit), from the field
-    operations it runs (ed25519_verify.cu, fe25519.cuh)."""
+    operations it runs (ed25519_verify.cu, fe25519.cuh). The least work of
+    a lane: the bound counts it."""
     decompress = (4 + 251, 7 + 11, 4)  # with fe_pow_p58
     final = (254, 11 + 2, 0)  # fe_invert, then x and y
     return curve25519_ops(tuple(d + f for d, f in zip(decompress, final)), 5 + 2)
+
+
+# ge25519_group.cuh: a select of one field element (10 limbs), a shuffle of
+# one (10 words), a sum not carried (gaddsub), one parallel carry pass
+# (carry_once) and two on 64-bit column sums (carry_wide), and the products
+# and squarings carried so (gmul, gsq)
+FE_SEL_OPS = 10
+SHFL_FE_OPS = 10
+FE_LAZY_OPS = 20
+CARRY_ONCE_OPS = 10 * 3
+CARRY_WIDE_OPS = 10 * 5 + 10 * 4
+G_MUL_OPS = 2 * 100 + 20 + CARRY_WIDE_OPS
+G_SQ_OPS = 2 * 55 + 21 + CARRY_WIDE_OPS
+G_SUB2_OPS = 30 + CARRY_ONCE_OPS
+
+
+def lazy_straus_ops() -> int:
+    """Instructions of straus_one (ge25519_group.cuh), the loop that G = 1
+    runs: the first design's table and 127 steps with the sums that feed
+    only products left uncarried, and the digit reads."""
+    dbl = 4 * FE_SQ_OPS + 4 * FE_MUL_OPS + 10 + CARRY_ONCE_OPS + 10 + 3 * G_SUB2_OPS + FE_LAZY_OPS
+    add = 8 * FE_MUL_OPS + 6 * FE_LAZY_OPS
+    to_cached = FE_MUL_OPS + 3 * FE_ADD_OPS
+    table = 2 * dbl + 11 * (to_cached + add) + 16 * to_cached + 2 * FE_MUL_OPS
+    return table + 127 * (2 * dbl + add + 8)
+
+
+def ed25519_core_g1_ops_per_lane() -> int:
+    """A lane of the four Ed25519 wire-key kernels at G = 1: A's
+    decompression, straus_one, then R's decompression and checks (5
+    canonical forms) and the projective compare (2 products, 2
+    comparisons) in place of the inversion and the encode. The least work
+    of a lane: the bound counts it (the first design's in brackets)."""
+    return lazy_straus_ops() + fe25519_ops([(ED_DECOMPRESS, 2), ((0, 2, 0), 1)], 3 + 5 + 4)
+
+
+def sr25519_g1_ops_per_lane() -> int:
+    """A lane of sr25519_verify at G = 1: two ristretto255 decodes and the
+    check (as sr25519_ops_per_lane counts them) around straus_one."""
+    decode = (5 + 251, 16 + 11, 6)
+    return lazy_straus_ops() + fe25519_ops([(decode, 2), ((0, 4, 0), 1)], 2 * 10 + 4) + 2 * FE_MUL_OPS
+
+
+def core_group_thread_ops(group: int) -> int:
+    """32-bit integer instructions (a shuffle counted as one) of one thread
+    of a lane's group at ``group`` = 2 or 4 threads a lane, each taking
+    4 / group of a point's coordinates (ge25519_group.cuh): A's
+    decompression, variable_base (the table of j (-A), 14 additions, then
+    64 windows of four doublings and one addition) and finish_group (the
+    addition of [s]B, the gathers). Every thread of the group runs as many:
+    at G = 4 this is the lane's critical chain."""
+    n = 4 // group
+    dbl = (2 * SHFL_FE_OPS + 10 + CARRY_ONCE_OPS + n * (FE_SEL_OPS + G_SQ_OPS + 10) + 4 * SHFL_FE_OPS
+           + n * (6 * FE_SEL_OPS + 2 * G_SUB2_OPS + G_MUL_OPS))
+    add = (2 * SHFL_FE_OPS + n * (FE_LAZY_OPS + FE_SEL_OPS + G_MUL_OPS) + 4 * SHFL_FE_OPS
+           + n * (4 * FE_SEL_OPS + 2 * FE_LAZY_OPS + G_MUL_OPS))
+    cache = 2 * SHFL_FE_OPS + n * (2 * FE_LAZY_OPS + 3 * FE_SEL_OPS + G_MUL_OPS + 10)
+    load = n * 10
+    table = 2 * cache + G_MUL_OPS + load + 14 * (add + cache)
+    loop = 64 * (load + 4 * dbl + add + 8)
+    return fe25519_ops([(ED_DECOMPRESS, 1)], 3) + table + loop + load + add + 3 * SHFL_FE_OPS
+
+
+def core_fixed_base_ops() -> int:
+    """Instructions of the thread beside a lane's group (the R warp's):
+    R's decompression and checks, then fixed_base's [s]B by B's comb
+    tables (15 doublings, 64 additions of a loaded Niels entry) and its
+    cached form."""
+    return (fe25519_ops([(ED_DECOMPRESS, 1), (GE_DBL, 15), (GE_MADD, 64), ((0, 1, 3), 1)], 5)
+            + 64 * (8 * 4 + 4 * 3))
 
 
 # (squarings, products, sums) of the point operations of ed25519_resident.cu
@@ -467,21 +545,62 @@ def live_sha512_blocks(mlen: np.ndarray) -> int:
 # --- phase 2: kernels against their plain versions --------------------------
 
 
+def r_wire_lanes():
+    """The compact wire u8[128, n] of ``vectors.resident_r_cases`` (every
+    way R can fail the projective compare, each with its key, s and h)
+    and their verdicts."""
+    r_cases = vectors.resident_r_cases()
+    return vectors.wire_rows(r_cases), [c[5] for c in r_cases]
+
+
+def as_words(wire: np.ndarray) -> np.ndarray:
+    """A compact wire u8[128, B] as the word wire u32[32, B]."""
+    return np.ascontiguousarray(np.ascontiguousarray(wire.T).view("<u4").T)
+
+
+def launch_group(name: str, group: int, out: torch.Tensor, *args) -> None:
+    """One launch of a wire-key core kernel at ``group`` threads a lane,
+    through its C entry point (args: its pointers and ints before B), on
+    the current stream; counts no launch."""
+    libs = {"ed25519_verify_compact": (ed25519_batch._lib, "cbt_ed25519_verify_compact"),
+            "sr25519_verify": (lambda: build.load("sr25519_verify", sr25519_batch._SIGNATURES), "cbt_sr25519_verify")}
+    lib, fn = libs[name]
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    base = ed25519_batch.core_base(group, out.device)
+    build.check(getattr(lib(), fn)(*ptrs, base, out.data_ptr(), out.shape[0], group, build.stream_ptr(out.device)), name)
+
+
 def check_ed25519(dev) -> int:
-    cases = vectors.edge_cases(SEED) + vectors.mixed_batch(33, SEED)
+    """ed25519_verify_compact == its plain version == the CPU verifier on
+    the edge cases, a mixed batch, the R cases as signatures and as wire
+    lanes, and the same lanes tiled to 6,000 at 2 threads a lane."""
+    cases = vectors.edge_cases(SEED) + vectors.mixed_batch(33, SEED) + vectors.r_signature_cases()
     wire, valid = ed25519_batch.prepare_batch_compact(
         [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
     )
+    r_wire, r_want = r_wire_lanes()
+    wire = np.concatenate([wire, r_wire], axis=1)
+    valid = np.concatenate([valid, np.ones(len(r_want), bool)])
     wire_t = torch.from_numpy(wire).to(dev)
     got = ed25519_batch.verify_kernel_compact(wire_t)
     torch.cuda.synchronize()
     plain = ed25519_batch.verify_compact_plain(wire_t)
-    err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max())
+    err = max_abs_err(got, plain)
     check(err == 0, "ed25519 kernel disagrees with its plain version")
-    cpu = [purepy.ed25519_verify(c[1], c[2], c[3]) for c in cases]
+    cpu = [purepy.ed25519_verify(c[1], c[2], c[3]) for c in cases] + r_want
     check(list(got.cpu().numpy() & valid) == cpu, "ed25519 kernel disagrees with the CPU verifier")
-    accepted = sum(cpu)
-    print(f"kernels: ed25519 {len(cases)} lanes ({accepted} accepted) == plain == cpu, max_abs_err {err}")
+    big = 6000
+    lanes = np.arange(big) % wire.shape[1]
+    (w_big,) = to_dev(dev, wire[:, lanes])
+    out = torch.empty(big, dtype=torch.uint8, device=dev)
+    launch_group("ed25519_verify_compact", 2, out, w_big)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(out.bool(), ed25519_batch.verify_compact_plain(w_big)))
+    check(err == 0 and out.bool().cpu().numpy().tolist() == got.cpu().numpy()[lanes].tolist(),
+          "ed25519_verify_compact at 6,000 lanes, 2 threads a lane, disagrees")
+    groups = [ed25519_batch.core_group(b, dev) for b in (wire.shape[1], big)]
+    print(f"kernels: ed25519 {len(cases)} lanes and {len(r_want)} R wire lanes ({sum(cpu)} accepted) == plain == cpu, "
+          f"B={big} at G=2 == plain; the rule's threads a lane {groups}, max_abs_err {err}")
     return err
 
 
@@ -591,7 +710,18 @@ def check_sr25519(dev) -> int:
     check(err == 0, "sr25519_verify disagrees with its plain version")
     cpu = sr_cpu(pks, msgs, sigs)
     check((got.cpu().numpy() & valid).tolist() == cpu, "sr25519_verify disagrees with the CPU verifier")
-    print(f"kernels: sr25519_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, max_abs_err {err}")
+    big = 6000
+    lanes = np.arange(big) % wire.shape[1]
+    (w_big,) = to_dev(dev, wire[:, lanes])
+    out = torch.empty(big, dtype=torch.uint8, device=dev)
+    launch_group("sr25519_verify", 2, out, w_big)
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(out.bool(), sr25519_batch.verify_plain(w_big)))
+    check(err == 0 and out.bool().cpu().numpy().tolist() == got.cpu().numpy()[lanes].tolist(),
+          "sr25519_verify at 6,000 lanes, 2 threads a lane, disagrees")
+    groups = [sr25519_batch.core_group(b, dev) for b in (wire.shape[1], big)]
+    print(f"kernels: sr25519_verify {len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, B={big} at G=2 == plain; "
+          f"the rule's threads a lane {groups}, max_abs_err {err}")
     return err
 
 
@@ -602,12 +732,14 @@ def check_words(dev) -> dict:
     cases, pks, msgs, sigs = edge_columns()
     cpu = [purepy.ed25519_verify(*c[1:]) for c in cases]
     wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
-    (w_t,) = to_dev(dev, wire)
+    r_wire, r_want = r_wire_lanes()
+    (w_t,) = to_dev(dev, np.concatenate([wire, as_words(r_wire)], axis=1))
     got = ed25519_batch.verify_kernel_words(w_t)
     torch.cuda.synchronize()
     err = max_abs_err(got, ed25519_batch.verify_words_plain(w_t))
     check(err == 0, "ed25519_verify_words disagrees with its plain version")
-    check((got.cpu().numpy() & valid).tolist() == cpu, "ed25519_verify_words disagrees with the CPU verifier")
+    check((got.cpu().numpy() & np.concatenate([valid, np.ones(len(r_want), bool)])).tolist() == cpu + r_want,
+          "ed25519_verify_words disagrees with the CPU verifier")
     packed = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
     args = to_dev(dev, *packed[:4])
     got = ed25519_batch.verify_kernel_full_words(*args)
@@ -616,7 +748,8 @@ def check_words(dev) -> dict:
     check(err_full == 0, "ed25519_verify_full_words disagrees with its plain version")
     check((got.cpu().numpy() & packed[4]).tolist() == cpu, "ed25519_verify_full_words disagrees with the CPU verifier")
     print(f"kernels: ed25519_verify_words and ed25519_verify_full_words ({packed[1].shape[0]} blocks) "
-          f"{len(cases)} lanes ({sum(cpu)} accepted) == plain == cpu, max_abs_err {err}, {err_full}")
+          f"{len(cases)} lanes ({sum(cpu)} accepted), the words kernel {len(r_want)} R wire lanes more, "
+          f"== plain == cpu, max_abs_err {err}, {err_full}")
     return {"ed25519_verify_words": err, "ed25519_verify_full_words": err_full}
 
 
@@ -625,7 +758,8 @@ def to_dev(dev, *arrays):
 
 
 def edge_columns():
-    cases = vectors.device_hash_cases(SEED) + vectors.edge_cases(SEED) + vectors.mixed_batch(33, SEED)
+    cases = (vectors.device_hash_cases(SEED) + vectors.edge_cases(SEED) + vectors.mixed_batch(33, SEED)
+             + vectors.r_signature_cases())
     return cases, [c[1] for c in cases], [c[2] for c in cases], [c[3] for c in cases]
 
 
@@ -1226,29 +1360,23 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
     check(bool(valid.all()), "the signed commit packed with an invalid lane")
     out = {}
 
-    def ed_row(batch, plain_runs):
+    core_ops = ed25519_core_g1_ops_per_lane()
+    for batch, plain_runs in ((N_VALIDATORS, 2), (ed25519_batch.MAX_CHUNK, 1), (BIG_BATCH, 1)):
         w = torch.from_numpy(np.ascontiguousarray(np.tile(wire_np, (1, -(-batch // N_VALIDATORS)))[:, :batch])).to(dev)
-        got = ed25519_batch.verify_kernel_compact(w)
-        plain, plain_ms = plain_timed(lambda: ed25519_batch.verify_compact_plain(w), plain_runs)
-        err = max_abs_err(got, plain)
-        check(err == 0, f"ed25519 kernel disagrees with its plain version at B={batch}")
-        check(bool(got.all()), f"ed25519 kernel rejected a signed lane at B={batch}")
-        errs["ed25519_verify_compact"] = max(errs["ed25519_verify_compact"], err)
-        print(f"kernels: ed25519 B={batch} == plain, all {batch} accepted, max_abs_err {err}")
-        ms = cuda_ms(lambda: ed25519_batch.verify_kernel_compact(w), runs=20)
-        b_ms, b_by = bound(batch * (128 + 1), batch * ed25519_core_ops_per_lane(), int_rate)
-        return ms, plain_ms, b_ms, b_by
-
-    ms, plain_ms, b_ms, b_by = ed_row(N_VALIDATORS, 2)
-    ms_big, plain_big, b_big, b_by_big = ed_row(BIG_BATCH, 1)
-    out["ed25519_verify_compact"] = {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"u8[128,{N_VALIDATORS}]",
-        "ms_16384": ms_big, "plain_ms_16384": plain_big,
-        "bound_ms_16384": b_big, "bound_by_16384": b_by_big,
-    }
-    print(f"time: ed25519_verify_compact B={N_VALIDATORS}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
-    print(f"time: ed25519_verify_compact B={BIG_BATCH}: kernel {ms_big:.4f} ms, plain {plain_big:.2f} ms, bound {b_big:.6f} ms ({b_by_big}) [{card}]")
+        row = kernel_row(
+            "ed25519_verify_compact", f"B={batch} G={ed25519_batch.core_group(batch, dev)}",
+            lambda: ed25519_batch.verify_kernel_compact(w), lambda: ed25519_batch.verify_compact_plain(w), plain_runs,
+            batch * (128 + 1), batch * core_ops, int_rate, errs, card)
+        check(bool(row.pop("got").all()), f"ed25519 kernel rejected a signed lane at B={batch}")
+        if batch == N_VALIDATORS:
+            out["ed25519_verify_compact"] = row
+        else:
+            out["ed25519_verify_compact"].update({f"{k}_{batch}": v for k, v in row.items()})
+    print(f"time: ed25519 wire-key core model: {core_ops} int32 instructions a lane at G=1 (the least: the bound; "
+          f"the first design's {ed25519_core_ops_per_lane()}); at G=4 one thread of the group "
+          f"{core_group_thread_ops(4)} (the chain), the thread beside it {core_fixed_base_ops()}, "
+          f"the lane {4 * core_group_thread_ops(4) + core_fixed_base_ops()}; at G=2 {core_group_thread_ops(2)} "
+          f"a thread [{card}]")
 
     leaves = [v.bytes() for v in vals.validators]
     blocks_np, n_live_np = sha256.pad_ragged_np(leaves, prefix=merkle.LEAF_PREFIX)
@@ -1332,19 +1460,21 @@ def time_sr_kernel(sr_lanes, card: str, errs: dict, int_rate: float) -> dict:
     dev = torch.device("cuda")
     wire, valid = sr25519_batch.prepare_batch(*lane_columns(sr_lanes))
     check(bool(valid.all()), "the signed sr25519 lanes packed with an invalid lane")
-    ops = sr25519_ops_per_lane()
+    ops = min(sr25519_ops_per_lane(), sr25519_g1_ops_per_lane())
     out = {}
     for batch, plain_runs in ((N_VALIDATORS, 2), (SR_WINDOW, 1)):
         (w_t,) = to_dev(dev, wire[:, np.arange(batch) % N_VALIDATORS])
+        group = sr25519_batch.core_group(batch, dev)
         row = kernel_row(
-            "sr25519_verify", f"B={batch}", lambda: sr25519_batch.verify_kernel(w_t),
+            "sr25519_verify", f"B={batch} G={group}", lambda: sr25519_batch.verify_kernel(w_t),
             lambda: sr25519_batch.verify_plain(w_t), plain_runs, (128 + 1) * batch, batch * ops, int_rate, errs, card)
         check(bool(row.pop("got").all()), f"sr25519_verify rejected a signed lane at B={batch}")
         if batch == N_VALIDATORS:
             out = row
         else:
             out.update({f"{k}_{SR_WINDOW}": v for k, v in row.items()})
-    print(f"time: sr25519_verify model: {ops} int32 instructions a lane [{card}]")
+    print(f"time: sr25519_verify model: {ops} int32 instructions a lane at G=1 (the least: the bound; the first "
+          f"design's {sr25519_ops_per_lane()}) [{card}]")
     return {"sr25519_verify": out}
 
 
@@ -1359,7 +1489,7 @@ def time_words_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> 
     wire, valid = ed25519_batch.prepare_batch(pks, msgs, sigs)
     wire24, hi, lo, nblocks, valid2 = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
     check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
-    ed_ops = ed25519_core_ops_per_lane()
+    ed_ops = ed25519_core_g1_ops_per_lane()
     out = {}
     for batch, plain_runs in ((N_VALIDATORS, 2), (BIG_BATCH, 1)):
         lanes = np.arange(batch) % N_VALIDATORS
@@ -1368,11 +1498,12 @@ def time_words_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> 
         hash_ops = int(nblocks[lanes].sum()) * SHA512_WORDS_BLOCK_OPS + batch * SC_REDUCE_OPS
         rows = {
             "ed25519_verify_words": kernel_row(
-                "ed25519_verify_words", f"B={batch}", lambda: ed25519_batch.verify_kernel_words(w_t),
+                "ed25519_verify_words", f"B={batch} G={ed25519_batch.core_group(batch, dev)}",
+                lambda: ed25519_batch.verify_kernel_words(w_t),
                 lambda: ed25519_batch.verify_words_plain(w_t), plain_runs,
                 (128 + 1) * batch, batch * ed_ops, int_rate, errs, card),
             "ed25519_verify_full_words": kernel_row(
-                "ed25519_verify_full_words", f"B={batch} u32[{hi.shape[0]},16,B] blocks",
+                "ed25519_verify_full_words", f"B={batch} G={ed25519_batch.core_group(batch, dev)} u32[{hi.shape[0]},16,B] blocks",
                 lambda: ed25519_batch.verify_kernel_full_words(w24_t, hi_t, lo_t, nb_t),
                 lambda: ed25519_batch.verify_full_words_plain(w24_t, hi_t, lo_t, nb_t), plain_runs,
                 (96 + 2 * hi.shape[0] * 64 + 4 + 1) * batch, batch * ed_ops + hash_ops, int_rate, errs, card),
@@ -1425,7 +1556,7 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
     out = {"ed25519_key_tables": row}
     print(f"time: ed25519_key_tables model: {table_ops} int32 instructions a key at one thread a key (the bound), "
           f"{ed25519_key_table_ops_per_key(COMB_SLICES)} as the kernel runs them, four threads a key [{card}]")
-    full_ops = ed25519_core_ops_per_lane()
+    full_ops = ed25519_core_g1_ops_per_lane()
     table_bytes = (n + 1) * ed25519_batch.KEY_TABLE_BYTES  # the set's tables and B's, each read once
     for batch, plain_runs in ((n, 2), (BIG_BATCH, 1)):
         lanes = np.arange(batch) % n
@@ -1444,7 +1575,7 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
                 lambda: ed25519_batch.verify_resident_plain(tables, idx, rsh_t), plain_runs,
                 table_bytes + idx_bytes + 96 * batch + batch, batch * res_ops, int_rate, errs, card),
             "ed25519_verify_full_compact": kernel_row(
-                "ed25519_verify_full_compact", f"B={batch} u8[{msg.shape[0]},B] messages",
+                "ed25519_verify_full_compact", f"B={batch} G={ed25519_batch.core_group(batch, dev)} u8[{msg.shape[0]},B] messages",
                 lambda: ed25519_batch.verify_kernel_full_compact(w_t, msg_t, mlen_t),
                 lambda: ed25519_batch.verify_full_compact_plain(w_t, msg_t, mlen_t), plain_runs,
                 (96 + msg.shape[0] + 4 + 1) * batch, batch * full_ops + hash_ops, int_rate, errs, card),
@@ -1454,7 +1585,7 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
         old_model = bound(table_bytes + idx_bytes + 97 * batch, batch * full_ops, int_rate)[0]
         print(f"time: ed25519_verify_resident B={batch} model: {res_ops} int32 instructions a lane at G=1 (the bound), "
               f"{ed25519_resident_ops_per_lane(group)} at the launch's G={group} "
-              f"(the first design's core {full_ops}: bound {old_model:.6f} ms) [{card}]")
+              f"(the wire-key core's {full_ops}: bound {old_model:.6f} ms) [{card}]")
         for name, row in rows.items():
             del row["got"]
             if batch == n:
@@ -1509,6 +1640,46 @@ def group_sweep(vals, commit, svals, scommit, card: str) -> None:
                 line.append(f"{name} G={group} {cuda_ms(fn, runs=20):.4f} ms")
         rule = [build.group_size(batch, dev, m.GROUP_THREADS_PER_SM) for m in (ed25519_batch, secp256k1_batch)]
         print(f"time: group sweep B={batch}: " + ", ".join(line) + f"; the rule picks G={rule[0]} and G={rule[1]} [{card}]")
+
+
+def core_group_sweep(vals, commit, sr_lanes, card: str) -> dict:
+    """The two wire-key cores at 1, 2 and 4 threads a lane (Ed25519 through
+    ed25519_verify_compact at B=180 and the window's 8,192 and 16,384;
+    sr25519_verify at B=180 and its window's 8,192), launched through their
+    C entry points, each output equal to the wrapper's (whose group size
+    the rule picks): the measurement behind the cores' budgets. Returns
+    {kernel: {"sweep_ms": {B: {G: ms}}}}."""
+    dev = torch.device("cuda")
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(pks))]
+    sigs = [cs.signature for cs in commit.signatures]
+    ed_wire, _ = ed25519_batch.prepare_batch_compact(pks, msgs, sigs)
+    sr_wire, _ = sr25519_batch.prepare_batch(*lane_columns(sr_lanes))
+    kernels = {
+        "ed25519_verify_compact": (ed_wire, ed25519_batch.verify_kernel_compact, (N_VALIDATORS, 8192, BIG_BATCH),
+                                   lambda b: ed25519_batch.core_group(b, dev)),
+        "sr25519_verify": (sr_wire, sr25519_batch.verify_kernel, (N_VALIDATORS, SR_WINDOW),
+                           lambda b: sr25519_batch.core_group(b, dev)),
+    }
+    result = {}
+    for name, (wire, wrapper, batches, rule) in kernels.items():
+        sweep = {}
+        for batch in batches:
+            (w_t,) = to_dev(dev, wire[:, np.arange(batch) % N_VALIDATORS])
+            want = wrapper(w_t)
+            out = torch.empty(batch, dtype=torch.uint8, device=dev)
+            line = []
+            sweep[batch] = {}
+            for group in (1, 2, 4):
+                launch_group(name, group, out, w_t)
+                torch.cuda.synchronize()
+                check(torch.equal(out.bool(), want), f"{name} at G={group} B={batch} != the wrapper's output")
+                ms = cuda_ms(lambda: launch_group(name, group, out, w_t), runs=20)
+                sweep[batch][group] = ms
+                line.append(f"G={group} {ms:.4f} ms")
+            print(f"time: group sweep {name} B={batch}: " + ", ".join(line) + f"; the rule picks G={rule(batch)} [{card}]")
+        result[name] = {"sweep_ms": sweep}
+    return result
 
 
 def wall_ms(fn, runs: int, warmup: int = 1) -> float:
@@ -1761,6 +1932,8 @@ def main() -> int:
     times.update(time_sr_kernel(sr_lanes, card, errs, int_rate))
     times.update(time_words_kernels(vals, commit, card, errs, int_rate))
     group_sweep(vals, commit, svals, scommit, card)
+    for name, sweep in core_group_sweep(vals, commit, sr_lanes, card).items():
+        times[name].update(sweep)
     print(f"phase: times {time.perf_counter() - t_times:.1f} s")
     record = []
     for name, (source, replaces) in KERNELS.items():

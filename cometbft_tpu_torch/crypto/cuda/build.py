@@ -32,12 +32,12 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 # library name -> (its .cu, then every header it includes)
 SOURCES: Dict[str, Sequence[str]] = {
-    "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh", "sc25519.cuh", "sha512.cuh"),
+    "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh", "ge25519_group.cuh", "sc25519.cuh", "sha512.cuh"),
     "ed25519_resident": ("ed25519_resident.cu", "fe25519.cuh"),
     "sha256": ("sha256.cu", "sha256.cuh"),
     "merkle": ("merkle.cu", "sha256.cuh"),
     "secp256k1_verify": ("secp256k1_verify.cu", "fe256k1.cuh"),
-    "sr25519_verify": ("sr25519_verify.cu", "fe25519.cuh"),
+    "sr25519_verify": ("sr25519_verify.cu", "fe25519.cuh", "ge25519_group.cuh"),
 }
 
 NVCC_FLAGS = [
@@ -144,23 +144,26 @@ def stream_ptr(device) -> ctypes.c_void_p:
 _SM_COUNT: Dict[str, int] = {}
 
 
-def group_size(batch: int, device, threads_per_sm: int) -> int:
+def group_size(batch: int, device, threads_per_sm: int, groups: Sequence[int] = (4, 2)) -> int:
     """Threads a lane for a launch of ``batch`` lanes of a grouped kernel:
-    the largest G in (4, 2, 1) with batch·G threads within the kernel's
+    the largest G in ``groups`` with batch·G threads within the kernel's
     budget of ``threads_per_sm`` on each streaming multiprocessor of the
-    card. A commit (B = 180) always gets 4 threads a lane. Where a batch
-    fills the card, the budget decides: ed25519_verify_resident's split
-    adds 15 doublings a thread (4% of a lane), so two warps a scheduler
-    (256) pay for themselves in hidden latency; secp256k1_verify's split
-    repeats a 128-doubling chain (40% of a lane at G = 2), so it takes one
-    warp a scheduler (128). chip_smoke.py's group sweep measures each G."""
+    card, else 1. A commit (B = 180) always gets 4 threads a lane. Where a
+    batch fills the card, the budget decides: ed25519_verify_resident's
+    split adds 15 doublings a thread (4% of a lane), so two warps a
+    scheduler (256) pay for themselves in hidden latency;
+    secp256k1_verify's split repeats a 128-doubling chain (40% of a lane
+    at G = 2), so it takes one warp a scheduler (128). The wire-key cores
+    (ed25519_verify.cu, sr25519_verify.cu) take 4 or 1: their G = 2 is
+    slower than G = 4 at 8,192 lanes and than G = 1 at 16,384.
+    chip_smoke.py's group sweeps measure each G."""
     import torch
 
     dev = torch.device(device)
     sms = _SM_COUNT.get(str(dev))
     if sms is None:
         sms = _SM_COUNT[str(dev)] = torch.cuda.get_device_properties(dev).multi_processor_count
-    for g in (4, 2):
+    for g in groups:
         if batch * g <= sms * threads_per_sm:
             return g
     return 1

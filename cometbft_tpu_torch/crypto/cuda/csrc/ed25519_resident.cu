@@ -56,59 +56,8 @@
 
 #include "fe25519.cuh"
 
-// Constants in canonical limbs; tests/test_torch_ed25519.py recomputes each
-// from its definition and checks these literals.
-__constant__ uint32_t K_D[10] = {
-    0x35978a3, 0x0d37284, 0x3156ebd, 0x06a0a0e, 0x001c029,
-    0x179e898, 0x3a03cbb, 0x1ce7198, 0x2e2b6ff, 0x1480db3};
-__constant__ uint32_t K_D2[10] = {
-    0x2b2f159, 0x1a6e509, 0x22add7a, 0x0d4141d, 0x0038052,
-    0x0f3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x0901b67};
-__constant__ uint32_t K_SQRT_M1[10] = {
-    0x20ea0b0, 0x186c9d2, 0x08f189d, 0x035697f, 0x0bd0c60,
-    0x1fbd7a7, 0x2804c9e, 0x1e16569, 0x004fc1d, 0x0ae0c92};
-
-#define COMB_SLICES 4
-#define COMB_COLUMNS 16
-#define SLICE_ENTRIES 16
-#define ENTRY_WORDS 32  // y+x, y-x, 2d x y (ten limbs each), two words of padding
-#define FLAG_ROW (COMB_SLICES * SLICE_ENTRIES)
-#define KEY_WORDS ((FLAG_ROW + 1) * ENTRY_WORDS)
 #define LANES_PER_BLOCK 32
 #define MAX_GROUP 4
-
-// y (low 255 bits), sign bit -> x with ref10 semantics; false when
-// x^2 = (y^2 - 1) / (d y^2 + 1) has no root.
-__device__ __forceinline__ bool decompress(fe &x, const fe &y, uint32_t sign) {
-  fe one, d, yy, u, v, v3, v7, t, vxx, nu, sqrt_m1;
-  fe_one(one);
-  fe_const(d, K_D);
-  fe_sq(yy, y);
-  fe_sub(u, yy, one);
-  fe_mul(v, yy, d);
-  fe_add(v, v, one);
-  fe_sq(v3, v);
-  fe_mul(v3, v3, v);
-  fe_sq(v7, v3);
-  fe_mul(v7, v7, v);
-  fe_mul(t, u, v7);
-  fe_pow_p58(t, t);
-  fe_mul(x, u, v3);
-  fe_mul(x, x, t);
-  fe_sq(vxx, x);
-  fe_mul(vxx, vxx, v);
-  const bool ok_direct = fe_eq(vxx, u);
-  fe_neg(nu, u);
-  const bool ok_flip = fe_eq(vxx, nu);
-  if (ok_flip) {
-    fe_const(sqrt_m1, K_SQRT_M1);
-    fe_mul(x, x, sqrt_m1);
-  }
-  fe xc;
-  fe_canonical(xc, x);
-  if ((xc.v[0] & 1u) != sign) fe_neg(x, x);
-  return ok_direct || ok_flip;
-}
 
 // n doublings, T computed only by the last (n >= 1).
 __device__ __forceinline__ void ge_dbl_n(ge &p, int n) {
@@ -216,38 +165,9 @@ ed25519_key_tables_kernel(const uint8_t *__restrict__ keys, int n,
 
 // --- ed25519_verify_resident: G threads a lane, one warp for R ---------------
 
-__device__ __forceinline__ void load_niels(ge_niels &q, const uint32_t *__restrict__ e) {
-  const uint4 *e4 = reinterpret_cast<const uint4 *>(e);
-  uint32_t w[32];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint4 v = __ldg(e4 + k);
-    w[4 * k] = v.x;
-    w[4 * k + 1] = v.y;
-    w[4 * k + 2] = v.z;
-    w[4 * k + 3] = v.w;
-  }
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    q.yp.v[i] = w[i];
-    q.ym.v[i] = w[10 + i];
-    q.t2d.v[i] = w[20 + i];
-  }
-}
-
 __device__ __forceinline__ void shfl_fe(fe &o, const fe &a, int mask) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) o.v[i] = __shfl_xor_sync(0xffffffffu, a.v[i], mask);
-}
-
-// Comb digit (slice u, column c) of the scalar in words w[0..8): bits
-// 64 i + 16 u + c, i = 0..3.
-__device__ __forceinline__ uint32_t comb_digit(const uint32_t *w, int u, int c) {
-  const int bit = 16 * u + c;
-  uint32_t d = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d |= ((w[2 * i + (bit >> 5)] >> (bit & 31)) & 1u) << i;
-  return d;
 }
 
 // Block: LANES_PER_BLOCK lanes; warps 0..G-1 run the comb (thread
@@ -277,7 +197,6 @@ ed25519_verify_resident_kernel(const uint32_t *__restrict__ keys, int N,
   ge acc;
   bool have = false, flag = false;
   if (r_warp) {
-    // R: y below p, a root, and not x = 0 with the sign bit set
     bool ok = false;
     fe xc, yc;
     fe_zero(xc);
@@ -285,20 +204,7 @@ ed25519_verify_resident_kernel(const uint32_t *__restrict__ keys, int N,
     if (live) {
       uint32_t rw[8];
       load_words(rw, rsh, 0, B, b);
-      fe y;
-      fe_from_words(y, rw);
-      fe_canonical(yc, y);
-      bool canon = true;
-#pragma unroll
-      for (int i = 0; i < 10; ++i) canon &= yc.v[i] == y.v[i];
-      const uint32_t sign = rw[7] >> 31;
-      fe x;
-      const bool root = decompress(x, yc, sign);
-      fe_canonical(xc, x);
-      uint32_t any = 0;
-#pragma unroll
-      for (int i = 0; i < 10; ++i) any |= xc.v[i];
-      ok = canon && root && !(any == 0 && sign != 0);
+      ok = decode_r(xc, yc, rw);
     }
 #pragma unroll
     for (int i = 0; i < 10; ++i) {

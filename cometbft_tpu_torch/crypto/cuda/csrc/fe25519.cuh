@@ -112,16 +112,15 @@ FE_FN void fe_neg(fe &out, const fe &a) {
   fe_sub(out, zero, a);
 }
 
-// Schoolbook 10x10 product: a product of two odd limbs lands one bit high
-// (x2), a product past limb 9 wraps with 2^255 = 19 (x19).
-FE_FN void fe_mul(fe &out, const fe &f, const fe &g) {
+// Schoolbook 10x10 product's columns: a product of two odd limbs lands one
+// bit high (x2), a product past limb 9 wraps with 2^255 = 19 (x19).
+FE_FN void fe_mul_columns(uint64_t h[10], const fe &f, const fe &g) {
   uint32_t g19[10], f2[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     g19[i] = 19u * g.v[i];
     f2[i] = (i & 1) ? 2u * f.v[i] : f.v[i];
   }
-  uint64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) h[k] = 0;
 #pragma unroll
@@ -133,14 +132,19 @@ FE_FN void fe_mul(fe &out, const fe &f, const fe &g) {
       h[(i + j) % 10] += (uint64_t)fi * gj;
     }
   }
+}
+
+FE_FN void fe_mul(fe &out, const fe &f, const fe &g) {
+  uint64_t h[10];
+  fe_mul_columns(h, f, g);
   fe_carry64(out, h);
 }
 
 // The same columns as fe_mul(f, f) from 55 products instead of 100: each
 // pair i < j is taken once and doubled. The multiplier m * f[j] stays below
-// 2^32 (m <= 76, f[j] < 2^25 + 2^15 where m has the odd-pair factor 2).
-FE_FN void fe_sq(fe &out, const fe &f) {
-  uint64_t h[10];
+// 2^32 (m <= 76, f[j] < 2^25 + 2^18 where m has the odd-pair factor 2, as
+// in ge25519_group.cuh's nearly carried form).
+FE_FN void fe_sq_columns(uint64_t h[10], const fe &f) {
 #pragma unroll
   for (int k = 0; k < 10; ++k) h[k] = 0;
 #pragma unroll
@@ -153,6 +157,11 @@ FE_FN void fe_sq(fe &out, const fe &f) {
       h[(i + j) % 10] += (uint64_t)f.v[i] * (m * f.v[j]);
     }
   }
+}
+
+FE_FN void fe_sq(fe &out, const fe &f) {
+  uint64_t h[10];
+  fe_sq_columns(h, f);
   fe_carry64(out, h);
 }
 
@@ -286,6 +295,80 @@ FE_FN void fe_to_words(uint32_t w[8], const fe &c) {
   }
 }
 
+// --- the curve's constants and decompression --------------------------------
+
+// Constants in canonical limbs; tests/test_torch_ed25519.py recomputes each
+// from its definition and checks these literals.
+__constant__ uint32_t K_D[10] = {
+    0x35978a3, 0x0d37284, 0x3156ebd, 0x06a0a0e, 0x001c029,
+    0x179e898, 0x3a03cbb, 0x1ce7198, 0x2e2b6ff, 0x1480db3};
+__constant__ uint32_t K_D2[10] = {
+    0x2b2f159, 0x1a6e509, 0x22add7a, 0x0d4141d, 0x0038052,
+    0x0f3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x0901b67};
+__constant__ uint32_t K_SQRT_M1[10] = {
+    0x20ea0b0, 0x186c9d2, 0x08f189d, 0x035697f, 0x0bd0c60,
+    0x1fbd7a7, 0x2804c9e, 0x1e16569, 0x004fc1d, 0x0ae0c92};
+__constant__ uint32_t K_BX[10] = {
+    0x325d51a, 0x18b5823, 0x0f6592a, 0x104a92d, 0x1a4b31d,
+    0x1d6dc5c, 0x27118fe, 0x07fd814, 0x13cd6e5, 0x085a4db};
+__constant__ uint32_t K_BY[10] = {
+    0x2666658, 0x1999999, 0x0cccccc, 0x1333333, 0x1999999,
+    0x0666666, 0x3333333, 0x0cccccc, 0x2666666, 0x1999999};
+
+// y (low 255 bits), sign bit -> x with ref10 semantics; false when
+// x^2 = (y^2 - 1) / (d y^2 + 1) has no root. Compiled once: a kernel
+// decompresses in several places, and each inlined copy of its 251
+// squarings adds seconds to the build.
+__device__ __noinline__ bool decompress(fe &x, const fe &y, uint32_t sign) {
+  fe one, d, yy, u, v, v3, v7, t, vxx, nu, sqrt_m1;
+  fe_one(one);
+  fe_const(d, K_D);
+  fe_sq(yy, y);
+  fe_sub(u, yy, one);
+  fe_mul(v, yy, d);
+  fe_add(v, v, one);
+  fe_sq(v3, v);
+  fe_mul(v3, v3, v);
+  fe_sq(v7, v3);
+  fe_mul(v7, v7, v);
+  fe_mul(t, u, v7);
+  fe_pow_p58(t, t);
+  fe_mul(x, u, v3);
+  fe_mul(x, x, t);
+  fe_sq(vxx, x);
+  fe_mul(vxx, vxx, v);
+  const bool ok_direct = fe_eq(vxx, u);
+  fe_neg(nu, u);
+  const bool ok_flip = fe_eq(vxx, nu);
+  if (ok_flip) {
+    fe_const(sqrt_m1, K_SQRT_M1);
+    fe_mul(x, x, sqrt_m1);
+  }
+  fe xc;
+  fe_canonical(xc, x);
+  if ((xc.v[0] & 1u) != sign) fe_neg(x, x);
+  return ok_direct || ok_flip;
+}
+
+// R as encode() could give it: y (the low 255 bits) below p, a root, and
+// not x = 0 with the sign bit set; (x, y) canonical. encode(P) of a point
+// P equals R's bytes exactly when this holds and P = (x, y).
+FE_FN bool decode_r(fe &xc, fe &yc, const uint32_t rw[8]) {
+  fe y, x;
+  fe_from_words(y, rw);
+  fe_canonical(yc, y);
+  bool canon = true;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) canon &= yc.v[i] == y.v[i];
+  const uint32_t sign = rw[7] >> 31;
+  const bool root = decompress(x, yc, sign);
+  fe_canonical(xc, x);
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) any |= xc.v[i];
+  return canon && root && !(any == 0 && sign != 0);
+}
+
 // --- points: extended (X, Y, Z, T), a = -1 ----------------------------------
 
 struct ge {
@@ -403,4 +486,46 @@ FE_FN void ge_dbl_xyz(ge &r, const ge &p) {
   fe_mul(r.X, e, f);
   fe_mul(r.Y, g, h);
   fe_mul(r.Z, f, g);
+}
+
+// --- comb tables (ed25519_resident.cu builds them; the resident kernel and
+// the wire-key kernels' fixed-base half read them) ---------------------------
+
+// A key's tables: for slice t in 0..3 and j in 0..15, row 16 t + j holds
+// sum_i j_i 2^(64 i + 16 t) P in affine Niels form (canonical limbs of
+// y+x, y-x, 2d x y); row FLAG_ROW word 0 is the key's validity flag.
+#define COMB_SLICES 4
+#define COMB_COLUMNS 16
+#define SLICE_ENTRIES 16
+#define ENTRY_WORDS 32  // y+x, y-x, 2d x y (ten limbs each), two words of padding
+#define FLAG_ROW (COMB_SLICES * SLICE_ENTRIES)
+#define KEY_WORDS ((FLAG_ROW + 1) * ENTRY_WORDS)
+
+// Comb digit (slice u, column c) of the scalar in words w[0..8): bits
+// 64 i + 16 u + c, i = 0..3.
+FE_FN uint32_t comb_digit(const uint32_t *w, int u, int c) {
+  const int bit = 16 * u + c;
+  uint32_t d = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d |= ((w[2 * i + (bit >> 5)] >> (bit & 31)) & 1u) << i;
+  return d;
+}
+
+FE_FN void load_niels(ge_niels &q, const uint32_t *__restrict__ e) {
+  const uint4 *e4 = reinterpret_cast<const uint4 *>(e);
+  uint32_t w[32];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint4 v = __ldg(e4 + k);
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    q.yp.v[i] = w[i];
+    q.ym.v[i] = w[10 + i];
+    q.t2d.v[i] = w[20 + i];
+  }
 }

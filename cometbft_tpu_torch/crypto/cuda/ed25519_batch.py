@@ -9,11 +9,17 @@ port keeps that wire and that contract; the host packing below is a copy
 of the reference's (:444-583) in numpy and hashlib.
 
 The CUDA kernel (``csrc/ed25519_verify.cu``) replaces that jitted XLA
-program. It runs one thread per signature: decompress A, build the
-16-entry table ds·B + dh·(−A) in cached form, run the 127-step radix-4
-Straus loop, invert Z, encode and byte-compare with R. ``verify_compact_plain``
-below is the same algorithm in torch ops over the batch; it is what a
-CPU tensor runs, and what the kernel is held against on the card.
+program with ``core_group`` threads a lane (``csrc/ge25519_group.cuh``).
+At a commit (4): the group computes [h](−A), each thread one of a
+point's four coordinates, over a table of A's multiples in shared
+memory, while the thread beside it decompresses R and computes [s]B from
+B's comb tables (``base_tables``); the sum is compared with R in
+projective form, so there is no inversion. At a full window (1): one
+thread a lane runs the 16-entry table ds·B + dh·(−A) and the 127-step
+radix-4 Straus loop, then R's decompression. ``verify_compact_plain``
+below computes the same verdicts in torch ops over the batch (the joint
+loop; it inverts Z, encodes and byte-compares); it is what a CPU tensor
+runs, and what the kernel is held against on the card.
 
 Semantics (reference :33-42): s >= L is rejected on the host (the
 ``valid`` mask, ANDed with the kernel's verdict); A's y is taken mod p;
@@ -470,6 +476,7 @@ COMB_TEETH = 4  # column c of a scalar: its bits 64i + c, i = 0..3
 COMB_COLUMNS = 16
 SLICE_ENTRIES = 1 << COMB_TEETH
 GROUP_THREADS_PER_SM = 256  # the resident kernel's budget for build.group_size
+CORE_GROUP_THREADS_PER_SM = 256  # the wire-key core's (ed25519_verify.cu's four kernels), G 4 or 1
 ENTRY_WORDS = 32  # Y+X, Y−X, 2d·X·Y as ten limbs each, two words of padding
 FLAG_ROW = COMB_SLICES * SLICE_ENTRIES  # row 64: word 0 is the key's flag
 TABLE_ROWS = FLAG_ROW + 1
@@ -675,14 +682,14 @@ def verify_full_words_plain(
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # wire, out, B, stream
-    "cbt_ed25519_verify_compact": [_P, _P, _I, _P],
-    # wire, msg, MP, mlen, out, B, stream
-    "cbt_ed25519_verify_full_compact": [_P, _P, _I, _P, _P, _I, _P],
-    # words, out, B, stream
-    "cbt_ed25519_verify_words": [_P, _P, _I, _P],
-    # words, msg_hi, msg_lo, n_blocks, nblocks, out, B, stream
-    "cbt_ed25519_verify_full_words": [_P, _P, _P, _I, _P, _P, _I, _P],
+    # wire, B's comb tables, out, B, group, stream
+    "cbt_ed25519_verify_compact": [_P, _P, _P, _I, _I, _P],
+    # wire, msg, MP, mlen, B's comb tables, out, B, group, stream
+    "cbt_ed25519_verify_full_compact": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
+    # words, B's comb tables, out, B, group, stream
+    "cbt_ed25519_verify_words": [_P, _P, _P, _I, _I, _P],
+    # words, msg_hi, msg_lo, n_blocks, nblocks, B's comb tables, out, B, group, stream
+    "cbt_ed25519_verify_full_words": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -696,6 +703,18 @@ _RESIDENT_SIGNATURES = {
 
 def _lib():
     return build.load("ed25519_verify", _SIGNATURES)
+
+
+def core_group(batch: int, device) -> int:
+    """Threads a lane for a launch of the wire-key core: 4 at a commit and
+    at a window chunk of 8,192, 1 at 16,384 (``CORE_GROUP_THREADS_PER_SM``)."""
+    return build.group_size(batch, device, CORE_GROUP_THREADS_PER_SM, groups=(4,))
+
+
+def core_base(group: int, device) -> Optional[int]:
+    """B's comb tables for a launch of a wire-key core: the threads beside
+    the groups compute [s]B from them at G = 4 (and 2); G = 1 reads none."""
+    return base_tables(device).data_ptr() if group > 1 else None
 
 
 def _resident_lib():
@@ -746,8 +765,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
     """bool[B] from the compact wire u8[128,B].
 
-    On a CUDA tensor this launches ``ed25519_verify_compact`` (one thread
-    per signature) on the current stream, or raises; a CPU tensor runs
+    On a CUDA tensor this launches ``ed25519_verify_compact`` (``core_group``
+    threads a lane) on the current stream, or raises; a CPU tensor runs
     ``verify_compact_plain``."""
     global LAUNCHES
     if wire.device.type == "cpu":
@@ -759,8 +778,9 @@ def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
     out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
     if batch == 0:
         return out.bool()
+    group = core_group(batch, wire.device)
     rc = _lib().cbt_ed25519_verify_compact(
-        wire.data_ptr(), out.data_ptr(), batch, build.stream_ptr(wire.device)
+        wire.data_ptr(), core_base(group, wire.device), out.data_ptr(), batch, group, build.stream_ptr(wire.device)
     )
     build.check(rc, "ed25519_verify_compact")
     LAUNCHES += 1
@@ -816,7 +836,8 @@ def verify_kernel_resident(key_tables: torch.Tensor, idx: Optional[torch.Tensor]
 def verify_kernel_full_compact(wire: torch.Tensor, msg: torch.Tensor, mlen: torch.Tensor) -> torch.Tensor:
     """bool[B] with h computed on the card (wire u8[96,B], msg u8[MP,B],
     mlen int32[B]). On CUDA tensors this launches
-    ``ed25519_verify_full_compact``, or raises; CPU tensors run
+    ``ed25519_verify_full_compact`` (``core_group`` threads a lane), or
+    raises; CPU tensors run
     ``verify_full_compact_plain``."""
     global FULL_LAUNCHES
     if wire.device.type == "cpu":
@@ -827,9 +848,10 @@ def verify_kernel_full_compact(wire: torch.Tensor, msg: torch.Tensor, mlen: torc
     out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
     if batch == 0:
         return out.bool()
+    group = core_group(batch, wire.device)
     rc = _lib().cbt_ed25519_verify_full_compact(
-        wire.data_ptr(), msg.data_ptr(), msg.shape[0], mlen.data_ptr(), out.data_ptr(),
-        batch, build.stream_ptr(wire.device),
+        wire.data_ptr(), msg.data_ptr(), msg.shape[0], mlen.data_ptr(), core_base(group, wire.device),
+        out.data_ptr(), batch, group, build.stream_ptr(wire.device),
     )
     build.check(rc, "ed25519_verify_full_compact")
     FULL_LAUNCHES += 1
@@ -839,8 +861,8 @@ def verify_kernel_full_compact(wire: torch.Tensor, msg: torch.Tensor, mlen: torc
 def verify_kernel_words(wire: torch.Tensor) -> torch.Tensor:
     """bool[B] from the word wire u32[32,B].
 
-    On a CUDA tensor this launches ``ed25519_verify_words`` (one thread
-    per signature) on the current stream, or raises; a CPU tensor runs
+    On a CUDA tensor this launches ``ed25519_verify_words`` (``core_group``
+    threads a lane) on the current stream, or raises; a CPU tensor runs
     ``verify_words_plain``."""
     global WORDS_LAUNCHES
     if wire.device.type == "cpu":
@@ -850,7 +872,10 @@ def verify_kernel_words(wire: torch.Tensor) -> torch.Tensor:
     out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
     if batch == 0:
         return out.bool()
-    rc = _lib().cbt_ed25519_verify_words(wire.data_ptr(), out.data_ptr(), batch, build.stream_ptr(wire.device))
+    group = core_group(batch, wire.device)
+    rc = _lib().cbt_ed25519_verify_words(
+        wire.data_ptr(), core_base(group, wire.device), out.data_ptr(), batch, group, build.stream_ptr(wire.device)
+    )
     build.check(rc, "ed25519_verify_words")
     WORDS_LAUNCHES += 1
     return out.bool()
@@ -862,7 +887,8 @@ def verify_kernel_full_words(
     """bool[B] with h computed on the card from pre-padded blocks (wire
     u32[24,B], msg_hi and msg_lo u32[n_blocks,16,B], nblocks int32[B]).
     On CUDA tensors this launches
-    ``ed25519_verify_full_words``, or raises; CPU tensors run
+    ``ed25519_verify_full_words`` (``core_group`` threads a lane), or
+    raises; CPU tensors run
     ``verify_full_words_plain``."""
     global FULL_WORDS_LAUNCHES
     if wire.device.type == "cpu":
@@ -876,9 +902,10 @@ def verify_kernel_full_words(
     out = torch.empty(batch, dtype=torch.uint8, device=wire.device)
     if batch == 0:
         return out.bool()
+    group = core_group(batch, wire.device)
     rc = _lib().cbt_ed25519_verify_full_words(
         wire.data_ptr(), msg_hi.data_ptr(), msg_lo.data_ptr(), n_blocks, nblocks.data_ptr(),
-        out.data_ptr(), batch, build.stream_ptr(wire.device),
+        core_base(group, wire.device), out.data_ptr(), batch, group, build.stream_ptr(wire.device),
     )
     build.check(rc, "ed25519_verify_full_words")
     FULL_WORDS_LAUNCHES += 1

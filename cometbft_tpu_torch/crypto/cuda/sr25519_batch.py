@@ -15,10 +15,11 @@ challenge k per lane, pure Python on the host as in the reference (the
 transcript binds A and R, so it cannot be batched).
 
 The CUDA kernel (``csrc/sr25519_verify.cu``) replaces that jitted XLA
-program, one thread per signature: decode A and R as ristretto255
+program, ``core_group`` threads a signature: decode A and R as ristretto255
 encodings (RFC 9496 §4.3.1: SQRT_RATIO_M1 over ``pow_p58``, ok when the
-ratio was a square, t = x·y is non-negative and y ≠ 0), run the Ed25519
-joint Straus loop for P = s·B + k·(−A), and accept iff both decodes are
+ratio was a square, t = x·y is non-negative and y ≠ 0), compute
+P = s·B + k·(−A) by the Straus core of the Ed25519 wire-key kernels
+(``csrc/ge25519_group.cuh``), and accept iff both decodes are
 ok and P equals R under ristretto equality, X·y_R == Y·x_R or
 Y·y_R == X·x_R (RFC 9496 §4.5, a = −1): a cross-multiplication, no
 inversion. ``verify_plain`` below is the same algorithm in torch ops over
@@ -36,11 +37,12 @@ import torch
 
 from cometbft_tpu_torch.crypto import sr25519 as host
 from cometbft_tpu_torch.crypto.cuda import build, field as fe, mesh
-from cometbft_tpu_torch.crypto.cuda.ed25519_batch import Point, _words, joint_straus, unpack_fe
+from cometbft_tpu_torch.crypto.cuda.ed25519_batch import Point, _words, core_base, joint_straus, unpack_fe
 from cometbft_tpu_torch.crypto.cuda.field import L, P
 
 WIRE_ROWS = 128
 MAX_CHUNK = 8192  # the reference's _MAX_CHUNK; CBFT_TPU_MAX_CHUNK overrides
+GROUP_THREADS_PER_SM = 256  # sr25519_verify's budget for build.group_size, G 4 or 1
 
 LAUNCHES = 0  # sr25519_verify launches (the plain version does not count)
 
@@ -149,14 +151,20 @@ def verify_plain(wire: torch.Tensor) -> torch.Tensor:
 # --- the kernel's wrapper ---------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"cbt_sr25519_verify": [_P, _P, _I, _P]}  # wire, out, B, stream
+_SIGNATURES = {"cbt_sr25519_verify": [_P, _P, _P, _I, _I, _P]}  # wire, B's comb tables, out, B, group, stream
+
+
+def core_group(batch: int, device) -> int:
+    """Threads a lane for a launch of ``sr25519_verify``: 4 at a flush and at
+    a window chunk of 8,192, else 1 (``GROUP_THREADS_PER_SM``)."""
+    return build.group_size(batch, device, GROUP_THREADS_PER_SM, groups=(4,))
 
 
 def verify_kernel(wire: torch.Tensor) -> torch.Tensor:
     """bool[B] from the wire u8[128, B].
 
-    On a CUDA tensor this launches ``sr25519_verify`` (one thread per
-    signature) on the current stream, or raises; a CPU tensor runs
+    On a CUDA tensor this launches ``sr25519_verify`` (``core_group``
+    threads a lane) on the current stream, or raises; a CPU tensor runs
     ``verify_plain``."""
     global LAUNCHES
     if wire.device.type == "cpu":
@@ -169,7 +177,10 @@ def verify_kernel(wire: torch.Tensor) -> torch.Tensor:
     if batch == 0:
         return out.bool()
     lib = build.load("sr25519_verify", _SIGNATURES)
-    rc = lib.cbt_sr25519_verify(wire.data_ptr(), out.data_ptr(), batch, build.stream_ptr(wire.device))
+    group = core_group(batch, wire.device)
+    rc = lib.cbt_sr25519_verify(
+        wire.data_ptr(), core_base(group, wire.device), out.data_ptr(), batch, group, build.stream_ptr(wire.device)
+    )
     build.check(rc, "sr25519_verify")
     LAUNCHES += 1
     return out.bool()

@@ -203,6 +203,28 @@ def resident_rows(cases: List[ResidentCase]) -> np.ndarray:
     return np.frombuffer(b"".join(cols), np.uint8).reshape(len(cases), 96).T.copy()
 
 
+def wire_rows(cases: List[ResidentCase]) -> np.ndarray:
+    """The compact wire u8[128, B] (A ‖ R ‖ S ‖ h) of ``resident_r_cases``
+    lanes, each with its key: what the wire-key kernels take when h comes
+    from the host."""
+    cols = [c[1] + c[2] + c[3].to_bytes(32, "little") + c[4].to_bytes(32, "little") for c in cases]
+    return np.frombuffer(b"".join(cols), np.uint8).reshape(len(cases), 128).T.copy()
+
+
+def r_signature_cases() -> List[Case]:
+    """``resident_r_cases``' R values as signatures, for the routes that
+    hash R ‖ A ‖ M themselves: under the identity key [h](−A) is the
+    identity whatever h is, so the lane's verdict is the byte compare of R
+    with the encoding of [s]B, and every way R can fail the projective
+    compare (y not below p, x = 0 with the sign bit set, no root, the sign
+    bit flipped, another valid point) reaches the card as a signature."""
+    ident = (1).to_bytes(32, "little")
+    return [
+        (label, ident, b"wire-r-%d" % i, r + s_.to_bytes(32, "little"))
+        for i, (label, _, r, s_, _, _) in enumerate(resident_r_cases())
+    ]
+
+
 # --- secp256k1 ------------------------------------------------------------------
 
 

@@ -9,9 +9,16 @@
   crypto/ed25519.py verify, on the contract's edge cases and a mixed batch
   of 33;
 * keys, signatures and the limb constants written into the CUDA sources
-  (``ed25519_verify.cu`` and ``ed25519_resident.cu``, whose comb layout
-  also equals the plain twin's) equal their reference or their
-  definition;
+  (``fe25519.cuh``, which every Ed25519 and sr25519 source includes, with
+  its comb layout, which equals the plain twin's; ``ge25519_group.cuh``'s
+  4p limbs and the scalar recodings of its grouped core) equal their
+  reference or their definition;
+* every way R can fail the projective compare that replaced the
+  inversion (``vectors.resident_r_cases``, each with its key): the plain
+  wire twins (compact and word wire) give the verdicts of the reference's
+  jitted kernels and of the point arithmetic, and the same R values as
+  signatures (``vectors.r_signature_cases``) give the CPU verifiers'
+  verdicts through the twins that hash on the card;
 * the word wire (``CBFT_TPU_WIRE=words``): the port's ``prepare_batch``
   equals the reference's u32[32, B] byte for byte; ``verify_words_plain``
   (the CPU twin of ``ed25519_verify_words``) gives the verdicts of the
@@ -140,26 +147,86 @@ def check_keys_match_reference():
         assert port_key.sign(b"msg %d" % i) == ref_key.sign(b"msg %d" % i)
 
 
+def _csrc(name):
+    with open(os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", name), encoding="utf-8") as f:
+        return f.read()
+
+
 def check_cuda_constants():
     want = {
         "K_D": fe.D, "K_D2": fe.D2, "K_SQRT_M1": fe.SQRT_M1,
         "K_BX": purepy.BX, "K_BY": purepy.BY,
     }
-    for source, names in (("ed25519_verify.cu", want), ("ed25519_resident.cu", ("K_D", "K_D2", "K_SQRT_M1"))):
-        src = os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", source)
-        with open(src, encoding="utf-8") as f:
-            text = f.read()
-        for name in names:
-            m = re.search(name + r"\[10\] = \{([^}]*)\}", text)
-            assert m, (source, name)
-            limbs = [int(v, 16) for v in m.group(1).replace("\n", " ").split(",")]
-            assert limbs == fe.int_to_limbs(want[name]), (source, name)
-    # the resident source's table layout is the plain twin's
-    with open(os.path.join(os.path.dirname(ed25519_batch.__file__), "csrc", "ed25519_resident.cu"), encoding="utf-8") as f:
-        text = f.read()
+    text = _csrc("fe25519.cuh")  # the one copy, which every Ed25519 and sr25519 source includes
+    for name, value in want.items():
+        m = re.search(name + r"\[10\] = \{([^}]*)\}", text)
+        assert m, name
+        assert [int(v, 16) for v in m.group(1).replace("\n", " ").split(",")] == fe.int_to_limbs(value), name
+    for source in ("ed25519_verify.cu", "ed25519_resident.cu", "ge25519_group.cuh"):
+        assert "__constant__ uint32_t" not in _csrc(source), source
+    # the comb layout (fe25519.cuh) is the plain twin's
     for name, value in (("COMB_SLICES", ed25519_batch.COMB_SLICES), ("COMB_COLUMNS", ed25519_batch.COMB_COLUMNS),
                         ("SLICE_ENTRIES", ed25519_batch.SLICE_ENTRIES), ("ENTRY_WORDS", ed25519_batch.ENTRY_WORDS)):
         assert re.search(r"#define %s (\d+)" % name, text).group(1) == str(value), name
+    check_group_recodings(_csrc("ge25519_group.cuh"))
+
+
+def check_group_recodings(text):
+    """The grouped core's literals: 4p limb by limb (u - a - b = u + 4p - a -
+    b), the mask that takes a scalar mod 2^254 (the bits the plain twin's 127
+    radix-4 digits read), the 4-bit windows from bit 252 down that rebuild
+    h, and the comb digits that rebuild s."""
+    limbs_p = [(1 << 26) - 19] + [(1 << (25 if i & 1 else 26)) - 1 for i in range(1, 10)]
+    assert fe.limbs_to_int(limbs_p) == fe.P
+    limbs_4p = [4 * v for v in limbs_p]
+    for name, value in (("FE_4P_0", limbs_4p[0]), ("FE_4P_ODD", limbs_4p[1]), ("FE_4P_EVEN", limbs_4p[2])):
+        assert int(re.search(r"#define %s (0x[0-9A-Fa-f]+)u" % name, text).group(1), 16) == value, name
+    assert set(limbs_4p[1::2]) == {limbs_4p[1]} and set(limbs_4p[2::2]) == {limbs_4p[2]}
+    masks = {int(m, 16) for m in re.findall(r"w\[7\] &= (0x[0-9A-Fa-f]+)u;", text)}
+    assert masks == {(1 << (254 - 224)) - 1}
+    first = int(re.search(r"const int bit = (\d+) - 4 \* \(i / 5\)", text).group(1))
+    rng = np.random.default_rng(29)
+    for _ in range(8):
+        n = int.from_bytes(rng.bytes(32), "little")
+        kept = n % (1 << 254)
+        windows = [(kept >> bit) & 15 for bit in range(first, -1, -4)]
+        assert len(windows) == 64 and sum(d << (4 * (63 - k)) for k, d in enumerate(windows)) == kept
+        words = torch.tensor([[(kept >> (32 * j)) & 0xFFFFFFFF] for j in range(8)], dtype=torch.int64)
+        digits = ed25519_batch.comb_digits(words)[:, :, 0]  # [slice, column]
+        total = sum(int(digits[t, c]) >> i & 1 and 1 << (64 * i + 16 * t + c)
+                    for t in range(4) for c in range(16) for i in range(4))
+        assert total == kept
+
+
+def check_r_cases():
+    """Every way R can fail the projective compare: the wire-level lanes
+    (``resident_r_cases`` with their keys, s and h) through the compact and
+    word twins against the point arithmetic's verdicts and the reference's
+    jitted kernels; the same R values as signatures under the identity key
+    through the twins that hash on the card against the CPU verifiers."""
+    r_cases = vectors.resident_r_cases()
+    want = [c[5] for c in r_cases]
+    assert want == [True, False, False, False, True, False, False]
+    wire = vectors.wire_rows(r_cases)
+    words = np.ascontiguousarray(np.ascontiguousarray(wire.T).view("<u4").T)
+    assert ed25519_batch.verify_compact_plain(torch.from_numpy(wire)).tolist() == want
+    assert ed25519_batch.verify_words_plain(torch.from_numpy(words)).tolist() == want
+    padded = np.zeros((128, _REF_LANES), np.uint8)
+    padded[:, : len(want)] = wire
+    assert np.asarray(ref_batch.verify_kernel_compact(padded))[: len(want)].tolist() == want
+    padded_words = np.zeros((32, _REF_LANES), np.uint32)
+    padded_words[:, : len(want)] = words
+    assert np.asarray(ref_batch.verify_kernel(jnp.asarray(padded_words)))[: len(want)].tolist() == want
+    sig_cases = vectors.r_signature_cases()
+    pks, msgs, sigs = _columns(sig_cases)
+    cpu = [purepy.ed25519_verify(p, m, s_) for p, m, s_ in zip(pks, msgs, sigs)]
+    assert cpu == want == [ref_ed.PubKeyEd25519(p).verify_signature(m, s_) for p, m, s_ in zip(pks, msgs, sigs)]
+    w, m, ml, valid = ed25519_batch.prepare_batch_device_hash_compact(pks, msgs, sigs)
+    got = ed25519_batch.verify_full_compact_plain(torch.from_numpy(w), torch.from_numpy(m), torch.from_numpy(ml))
+    assert (got.numpy() & valid).tolist() == cpu
+    w, hi, lo, nb, valid = ed25519_batch.prepare_batch_device_hash(pks, msgs, sigs)
+    got = ed25519_batch.verify_full_words_plain(*(torch.from_numpy(x) for x in (w, hi, lo, nb)))
+    assert (got.numpy() & valid).tolist() == cpu
 
 
 def check_word_wire(monkeypatch):
@@ -210,5 +277,6 @@ def test_ed25519_matches_reference(monkeypatch):
     check_wrapper_on_cpu_runs_the_plain_version()
     check_keys_match_reference()
     check_cuda_constants()
+    check_r_cases()
     with monkeypatch.context() as m:
         check_word_wire(m)

@@ -12,8 +12,8 @@
   ``sr25519_verify``) gives the verdicts of the reference's jitted
   ``verify_kernel`` (called directly, at the reference's 64-lane padded
   shape) and of the reference's and the port's CPU verifiers on
-  ``vectors.sr25519_cases`` and 40 mixed lanes; the limb constants written
-  into the CUDA source equal their definitions;
+  ``vectors.sr25519_cases`` and 40 mixed lanes; the limb constants that
+  the CUDA source takes from ``fe25519.cuh`` equal their definitions;
 * the gpu verifier (plain versions): a flush mixing Ed25519, secp256k1 and
   sr25519 keys comes back in input order as Python bools, equal to
   ``"cpu"``'s; ``verify_batch`` keeps lane order across a chunk edge; a
@@ -156,11 +156,16 @@ def _c_array(src, name):
 
 
 def check_cuda_constants():
+    """sr25519_verify.cu takes its constants from fe25519.cuh (shared with
+    the Ed25519 kernels) and defines none of its own."""
     with open(os.path.join(_CSRC, "sr25519_verify.cu"), encoding="utf-8") as f:
         cu = f.read()
+    assert '#include "fe25519.cuh"' in cu and "__constant__ uint32_t" not in cu
+    with open(os.path.join(_CSRC, "fe25519.cuh"), encoding="utf-8") as f:
+        header = f.read()
     want = {"K_D": fe.D, "K_D2": fe.D2, "K_SQRT_M1": fe.SQRT_M1, "K_BX": purepy.BX, "K_BY": purepy.BY}
     for name, value in want.items():
-        assert _c_array(cu, name) == fe.int_to_limbs(value), name
+        assert _c_array(header, name) == fe.int_to_limbs(value), name
     assert (sr._BASE[0], sr._BASE[1]) == (purepy.BX, purepy.BY)
 
 
