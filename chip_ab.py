@@ -12,8 +12,12 @@ warms up, and takes the median host wall on the card of
 ValidatorSet.verify_commit for the Ed25519 set on the resident route
 (hits) and on the keyed compact route (key store bypassed: the keys ride
 the wire to ed25519_verify_compact), of the secp256k1 set's
-(add()/verify()), and of a new_batch_verifier("gpu") flush of the sr25519
-lanes.
+(add()/verify()), of a new_batch_verifier("gpu") flush of the sr25519
+lanes, of the Ed25519 set's first resident commit (the miss: the key store
+emptied, so the call uploads the keys and builds their comb tables), and
+of ValidatorSet.hash on the card and on the host, taken in turns in the
+process; and the CUDA-event time a call of the tree's ed25519_key_tables
+kernel for the set's 180 keys, 20 calls back to back.
 Comparing two versions within one call, in turns, gives both the same
 card and the same load on the host, whose Python time moves by up to 2x
 between calls.
@@ -33,14 +37,15 @@ import sys
 
 import torch
 
-ED_RUNS, SECP_RUNS, SR_RUNS = 40, 20, 5
+ED_RUNS, SECP_RUNS, SR_RUNS, MISS_RUNS, HASH_RUNS = 40, 20, 5, 20, 40
 
 CHILD = f"""
 import json, statistics, time
+import numpy as np, torch
 import chip_smoke as cs
 from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import secp256k1 as secp
-from cometbft_tpu_torch.crypto.cuda import build, keystore
+from cometbft_tpu_torch.crypto.cuda import build, ed25519_batch, keystore
 
 build.build_all()
 vals, block_id, commit = cs.make_valset_and_commit()
@@ -73,7 +78,29 @@ ed = p50(lambda: vals.verify_commit(cs.CHAIN_ID, block_id, commit.height, commit
 compact = p50(keyed, {ED_RUNS})
 sp = p50(lambda: svals.verify_commit(cs.CHAIN_ID, sblock_id, scommit.height, scommit), {SECP_RUNS})
 sr = p50(lambda: cs.flush(sr_lanes, None), {SR_RUNS})
-print(json.dumps({{"ed25519": ed, "compact": compact, "secp256k1": sp, "sr25519": sr}}))
+
+
+def miss():
+    keystore.default_store().invalidate()
+    vals.verify_commit(cs.CHAIN_ID, block_id, commit.height, commit)
+
+
+first = p50(miss, {MISS_RUNS})
+hashes = cs.wall_ms_turns({{"card": lambda: vals.hash(device="cuda"), "host": lambda: vals.hash(device="cpu")}},
+                          runs={HASH_RUNS})
+keys = torch.from_numpy(np.frombuffer(b"".join(v.pub_key.bytes() for v in vals.validators), np.uint8)
+                        .reshape(-1, 32).copy()).cuda()
+ed25519_batch.key_tables_kernel(keys)
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(20):
+    ed25519_batch.key_tables_kernel(keys)
+end.record()
+end.synchronize()
+print(json.dumps({{"ed25519": ed, "compact": compact, "secp256k1": sp, "sr25519": sr, "miss": first,
+                  "hash_card": hashes["card"][0], "hash_host": hashes["host"][0],
+                  "key_tables": start.elapsed_time(end) / 20}}))
 """
 
 
@@ -100,12 +127,16 @@ def main() -> int:
             results[name].append(res)
             print(f"ab: turn {t} {name:5s} p50 verify_commit Ed25519 resident {res['ed25519']:.3f} ms, "
                   f"Ed25519 keyed compact route {res['compact']:.3f} ms, secp256k1 {res['secp256k1']:.3f} ms; "
-                  f"sr25519 flush {res['sr25519']:.3f} ms; 180 lanes [{card}]", flush=True)
+                  f"sr25519 flush {res['sr25519']:.3f} ms; first resident commit (miss) {res['miss']:.3f} ms; "
+                  f"ValidatorSet.hash card {res['hash_card']:.3f} ms, host {res['hash_host']:.3f} ms; "
+                  f"ed25519_key_tables kernel {res['key_tables']:.4f} ms; 180 lanes [{card}]", flush=True)
     for name, rows in results.items():
-        med = {k: statistics.median(r[k] for r in rows) for k in ("ed25519", "compact", "secp256k1", "sr25519")}
+        med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
         print(f"ab: {name:5s} ({trees[name]}) median of {len(rows)} processes: verify_commit Ed25519 resident "
               f"{med['ed25519']:.3f} ms, Ed25519 keyed compact route {med['compact']:.3f} ms, secp256k1 "
-              f"{med['secp256k1']:.3f} ms; sr25519 flush {med['sr25519']:.3f} ms [{card}]")
+              f"{med['secp256k1']:.3f} ms; sr25519 flush {med['sr25519']:.3f} ms; first resident commit (miss) "
+              f"{med['miss']:.3f} ms; ValidatorSet.hash card {med['hash_card']:.3f} ms, host {med['hash_host']:.3f} "
+              f"ms; ed25519_key_tables kernel {med['key_tables']:.4f} ms [{card}]")
     return 0
 
 

@@ -26,8 +26,10 @@ goes wrong:
              SHA-512 and reduction mod L to exactness (torsioned keys whose
              verdict changes with h + L); SHA-256
              at message lengths 0, 55, 56, 64, 65 and 200 in fixed and
-             ragged form (and against hashlib); Merkle roots for n in
-             {1, 2, 3, 5, 180, 4097} (and against the host tree);
+             ragged form (and against hashlib); merkle_tree's roots for n
+             in {1, 2, 3, 5, 180, 1025, 4097} (the last two past its
+             shared memory, through its scratch buffer) against its plain
+             version and the host tree, and merkle_level's levels;
              secp256k1_verify on the secp256k1 contract's cases, 40 mixed
              lanes (and against the CPU verifier) and the wire-level
              r + n, point-at-infinity and equal, opposite and zero
@@ -54,8 +56,8 @@ goes wrong:
                              first call uploads the set's keys and builds
                              their comb tables, the rest hit); a set with
                              one validator replaced misses and uploads
-                             again; ValidatorSet.hash on the card equals
-                             the host tree;
+                             again; ValidatorSet.hash on the card (one
+                             merkle_tree launch) equals the host tree;
              indexed flush — the 180 precommits flushed through
                              new_batch_verifier("gpu") while the set is
                              resident take the indexed route;
@@ -73,8 +75,8 @@ goes wrong:
              secp256k1 (signed in pure Python):
              secp commit   — verify_commit* under "gpu" and "cpu" agree as
                              above, through add()/verify() (no key-store
-                             upload); ValidatorSet.hash on the card equals
-                             the host tree;
+                             upload); ValidatorSet.hash on the card (one
+                             merkle_tree launch) equals the host tree;
              mixed flush   — the 180 Ed25519 precommits (the set resident:
                              indexed) and the 180 secp256k1 precommits,
                              interleaved, one of each corrupted, in one
@@ -102,7 +104,7 @@ goes wrong:
 4. times   — host wall medians of verify_commit (resident hit, the
              keyed compact route, "cpu"; the resident miss, upload and
              table build included, apart), the flushes and
-             ValidatorSet.hash; signatures per second of the window in two
+             ValidatorSet.hash on the card and on the host in turns; signatures per second of the window in two
              chunks against one launch; the device's idle share over ten
              resident verify_commit calls (torch.profiler); the secp256k1
              set's verify_commit on "gpu" and "cpu" in turns, its packing
@@ -115,9 +117,11 @@ goes wrong:
              over 3.35 TB/s and 32-bit integer operations over the card's
              integer rate), at the main path's shapes (B=180 and 16,384;
              4,096 too for secp256k1, 8,192 for sr25519 and for
-             ed25519_verify_compact, 180 keys for the key tables), where
+             ed25519_verify_compact, 180 and 4,096 keys for the key
+             tables, the 180 validator leaves for merkle_tree), where
              each kernel's output must again equal its plain version's
-             exactly; and the grouped kernels at each group size (1, 2
+             exactly (merkle_tree and the key tables also back to
+             back, run_ms); and the grouped kernels at each group size (1, 2
              and 4 threads a lane) through their C entry points, each
              output equal to the wrapper's: the resident and secp256k1
              kernels at B=180, 4,096 and 16,384, the two wire-key cores
@@ -219,7 +223,6 @@ K1_ADD_OPS = 10 + K1_CARRY32_OPS  # fe_add, fe_mul_small
 K1_SUB_OPS = 20 + K1_CARRY32_OPS
 K1_CANONICAL_OPS = 2 * K1_CARRY32_OPS + 10 * 4 + 10
 SECP_FIRST_DESIGN_OPS = 1968574  # the one-thread design of secp256k1_verify (PERF.md §6)
-COMB_SLICES = ed25519_batch.COMB_SLICES
 
 ED_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_verify.cu"
 RESIDENT_SOURCE = "cometbft_tpu_torch/crypto/cuda/csrc/ed25519_resident.cu"
@@ -237,6 +240,10 @@ KERNELS = {
     "merkle_level": (
         "cometbft_tpu_torch/crypto/cuda/csrc/merkle.cu",
         "cometbft_tpu/crypto/tpu/merkle.py:103",
+    ),
+    "merkle_tree": (
+        "cometbft_tpu_torch/crypto/cuda/csrc/merkle.cu",
+        "cometbft_tpu/crypto/tpu/merkle.py:141",
     ),
     "secp256k1_verify": (
         "cometbft_tpu_torch/crypto/cuda/csrc/secp256k1_verify.cu",
@@ -274,6 +281,7 @@ def reset_counts() -> None:
     ed25519_batch.FULL_LAUNCHES = 0
     sha256.LAUNCHES = 0
     merkle.LAUNCHES = 0
+    merkle.TREE_LAUNCHES = 0
     secp256k1_batch.LAUNCHES = 0
     sr25519_batch.LAUNCHES = 0
     ed25519_batch.WORDS_LAUNCHES = 0
@@ -288,6 +296,7 @@ def counts() -> dict:
         "ed25519_verify_full_compact": ed25519_batch.FULL_LAUNCHES,
         "sha256_blocks": sha256.LAUNCHES,
         "merkle_level": merkle.LAUNCHES,
+        "merkle_tree": merkle.TREE_LAUNCHES,
         "secp256k1_verify": secp256k1_batch.LAUNCHES,
         "sr25519_verify": sr25519_batch.LAUNCHES,
         "ed25519_verify_words": ed25519_batch.WORDS_LAUNCHES,
@@ -310,6 +319,23 @@ def cuda_ms(fn, runs: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(fn, runs: int = 20) -> float:
+    """CUDA-event time of ``runs`` calls of fn launched back to back (no
+    synchronisation between them), over ``runs``, after a warm-up: the
+    card's time a call where it runs longer than the host takes to
+    launch it, else the host's launch rate. cuda_ms's single call also
+    counts the host's time to reach the launch."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def plain_timed(plain, runs: int):
@@ -422,6 +448,14 @@ def sr25519_g1_ops_per_lane() -> int:
     return lazy_straus_ops() + fe25519_ops([(decode, 2), ((0, 4, 0), 1)], 2 * 10 + 4) + 2 * FE_MUL_OPS
 
 
+def group_dbl_ops(n: int) -> int:
+    """Instructions of one thread of dbl_group (ge25519_group.cuh) holding
+    n of a point's four coordinates: the shuffles of X and Y and their sum,
+    n squarings, the four gathers, n products of two operands each."""
+    return (2 * SHFL_FE_OPS + 10 + CARRY_ONCE_OPS + n * (FE_SEL_OPS + G_SQ_OPS + 10) + 4 * SHFL_FE_OPS
+            + n * (6 * FE_SEL_OPS + 2 * G_SUB2_OPS + G_MUL_OPS))
+
+
 def core_group_thread_ops(group: int) -> int:
     """32-bit integer instructions (a shuffle counted as one) of one thread
     of a lane's group at ``group`` = 2 or 4 threads a lane, each taking
@@ -431,8 +465,7 @@ def core_group_thread_ops(group: int) -> int:
     addition of [s]B, the gathers). Every thread of the group runs as many:
     at G = 4 this is the lane's critical chain."""
     n = 4 // group
-    dbl = (2 * SHFL_FE_OPS + 10 + CARRY_ONCE_OPS + n * (FE_SEL_OPS + G_SQ_OPS + 10) + 4 * SHFL_FE_OPS
-           + n * (6 * FE_SEL_OPS + 2 * G_SUB2_OPS + G_MUL_OPS))
+    dbl = group_dbl_ops(n)
     add = (2 * SHFL_FE_OPS + n * (FE_LAZY_OPS + FE_SEL_OPS + G_MUL_OPS) + 4 * SHFL_FE_OPS
            + n * (4 * FE_SEL_OPS + 2 * FE_LAZY_OPS + G_MUL_OPS))
     cache = 2 * SHFL_FE_OPS + n * (2 * FE_LAZY_OPS + 3 * FE_SEL_OPS + G_MUL_OPS + 10)
@@ -477,26 +510,34 @@ def ed25519_resident_ops_per_lane(group: int) -> int:
     return fe25519_ops(parts, 5 + 4) + 256 * 4 * 3
 
 
-def ed25519_key_table_ops_per_key(threads: int = 1) -> int:
-    """32-bit integer instructions of the comb tables of one key. With one
+def ed25519_key_table_ops_per_key() -> int:
+    """32-bit integer instructions of the comb tables of one key at one
     thread a key (the least work, which the bound counts): decompress A,
     negate it, 240 doublings to 2^240·(−A) (T computed only at the 15
     multiples of 2^16 kept), 44 additions for the 64 entries, one batch
     inversion (63 + 126 products and fe_invert) and, per entry, 4
-    products, 2 sums and 3 canonical forms. ed25519_key_tables runs four
-    threads a key (``threads`` = 4), one a slice t, each decompressing A
-    and doubling 192 + 16t times with its own batch inversion of 16."""
-    if threads == 1:
-        parts = [(ED_DECOMPRESS, 1), ((0, 1, 1), 1), (GE_DBL, 15), (GE_DBL_XYZ, 225), (GE_ADD, 44),
-                 ((254, 11 + 189, 0), 1), ((0, 4, 2), 64)]
-        return fe25519_ops(parts, 3 + 3 * 64)
-    total = 0
-    for t in range(COMB_SLICES):
-        runs = 4 if t else 3
-        parts = [(ED_DECOMPRESS, 1), ((0, 1, 1), 1), (GE_DBL, runs), (GE_DBL_XYZ, 192 + 16 * t - runs),
-                 (GE_ADD, 11), ((254, 11 + 45, 0), 1), ((0, 4, 2), 16)]
-        total += fe25519_ops(parts, 3 + 3 * 16)
-    return total
+    products, 2 sums and 3 canonical forms."""
+    parts = [(ED_DECOMPRESS, 1), ((0, 1, 1), 1), (GE_DBL, 15), (GE_DBL_XYZ, 225), (GE_ADD, 44),
+             ((254, 11 + 189, 0), 1), ((0, 4, 2), 64)]
+    return fe25519_ops(parts, 3 + 3 * 64)
+
+
+def ed25519_key_table_kernel_ops() -> tuple:
+    """(one chain thread, one helper thread at most, the whole key) in
+    32-bit integer instructions as ed25519_key_tables runs a key: four
+    threads each decompress A and run the 240 doublings split by
+    coordinate (ge25519_group.cuh's dbl_group<4>, storing 16 bases); eight
+    helpers run the 44 additions, the prefix products of their entries'
+    Z (52), the products of the other helpers' totals (7 each), helper 0
+    the key's product and fe_invert, and each helper the walk back (2
+    products an entry but its first) and the conversion (4 products, 2
+    sums, 3 canonical forms an entry). The chain thread's count is the
+    key's critical chain up to the last base."""
+    chain = fe25519_ops([(ED_DECOMPRESS, 1), ((0, 1, 1), 1)], 3) + 240 * group_dbl_ops(1) + 16 * 10
+    helpers = fe25519_ops([(GE_ADD, 44), ((0, 52 + 8 * 7 + 1 + 8 + 2 * 52, 0), 1), ((254, 11, 0), 1),
+                           ((0, 4, 2), 60)], 3 * 60)
+    worst = fe25519_ops([(GE_ADD, 8), ((0, 7 + 7 + 1 + 1 + 2 * 7, 0), 1), ((254, 11, 0), 1), ((0, 4, 2), 8)], 3 * 8)
+    return chain, worst, 4 * chain + helpers
 
 
 def sr25519_ops_per_lane() -> int:
@@ -633,24 +674,39 @@ def check_sha256(dev) -> int:
     return err
 
 
-def check_merkle(dev) -> int:
+def check_merkle(dev) -> dict:
+    """merkle_tree (through ValidatorSet's route, hash_from_byte_slices on
+    the card, and called on the same leaf tensors as its plain version)
+    against its plain version and the host tree; merkle_level's levels
+    against theirs. n = 1025 and 4,097 take merkle_tree's scratch buffer
+    (levels of more than the 1,024 nodes of its shared memory)."""
     rng = np.random.default_rng(SEED + 1)
-    err = 0
-    for n in (1, 2, 3, 5, 180, 4097):
-        items = [rng.bytes(int(rng.integers(1, 90))) for _ in range(n)]
+    errs = {"merkle_tree": 0, "merkle_level": 0}
+    sizes = (1, 2, 3, 5, 180, 1025, 4097)
+    for n in sizes:
+        items = [rng.bytes(int(rng.choice([54, 55, int(rng.integers(1, 90))]))) for _ in range(n)]
         want = host_merkle.hash_from_byte_slices(items)
+        before = merkle.TREE_LAUNCHES
         got = merkle.hash_from_byte_slices(items, device=dev)
+        check(merkle.TREE_LAUNCHES == before + 1, f"the card's root at n={n} did not take one merkle_tree launch")
         plain = merkle.hash_from_byte_slices(items, device="cpu")
         check(got == want == plain, f"merkle root differs at n={n}")
+        blocks_np, n_live_np = sha256.pad_ragged_np(items, prefix=merkle.LEAF_PREFIX)
+        blocks, n_live = sha256.from_u32(blocks_np, dev), torch.from_numpy(n_live_np).to(dev)
+        root = merkle.merkle_tree(blocks, n_live)
+        torch.cuda.synchronize()
+        errs["merkle_tree"] = max(errs["merkle_tree"], max_abs_err(root, merkle.merkle_tree_plain(blocks, n_live)))
         digests = sha256.from_u32(
             rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32), dev
         )
         lvl = merkle.merkle_level(digests)
         lvl_plain = merkle.merkle_level_plain(digests)
-        err = max(err, int((lvl.to(torch.int64) - lvl_plain.to(torch.int64)).abs().max()))
-    check(err == 0, "merkle_level kernel disagrees with its plain version")
-    print(f"kernels: merkle roots n in (1, 2, 3, 5, 180, 4097) == plain == host tree, max_abs_err {err}")
-    return err
+        errs["merkle_level"] = max(errs["merkle_level"], max_abs_err(lvl, lvl_plain))
+    check(errs["merkle_tree"] == 0, "merkle_tree kernel disagrees with its plain version")
+    check(errs["merkle_level"] == 0, "merkle_level kernel disagrees with its plain version")
+    print(f"kernels: merkle_tree roots n in {sizes} == plain == host tree, one launch each; merkle_level levels "
+          f"== plain; max_abs_err {errs}")
+    return errs
 
 
 def secp_cpu(pks, msgs, sigs):
@@ -1006,6 +1062,8 @@ def commit_path(vals, block_id, commit, per_call):
     before = counts()
     dev_hash = vals.hash()  # the default device: the card
     per_call["ValidatorSet.hash"] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(per_call["ValidatorSet.hash"] == {"merkle_tree": 1},
+          f"ValidatorSet.hash launched {per_call['ValidatorSet.hash']}, not one merkle_tree")
     check(dev_hash == vals.hash(device="cpu"), "ValidatorSet.hash on the card != host tree")
     print(f"main: ValidatorSet.hash on the card == host tree ({dev_hash.hex()[:16]}...)")
 
@@ -1108,6 +1166,8 @@ def secp_commit_path(svals, sblock_id, scommit, per_call):
     before = counts()
     dev_hash = svals.hash()
     per_call["secp ValidatorSet.hash"] = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(per_call["secp ValidatorSet.hash"] == {"merkle_tree": 1},
+          f"secp256k1 ValidatorSet.hash launched {per_call['secp ValidatorSet.hash']}, not one merkle_tree")
     check(dev_hash == svals.hash(device="cpu"), "secp256k1 ValidatorSet.hash on the card != host tree")
     print(f"main: secp256k1 set: {len(results)} verify_commit* calls == cpu with no upload; "
           f"ValidatorSet.hash on the card == host tree ({dev_hash.hex()[:16]}...)")
@@ -1288,11 +1348,11 @@ def words_path(vals, commit, per_call):
 
 
 PATHS = {  # path -> the kernels it must launch
-    "commit": ("ed25519_verify_resident", "ed25519_key_tables", "sha256_blocks", "merkle_level"),
+    "commit": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree"),
     "indexed flush": ("ed25519_verify_resident",),
     "device hash": ("ed25519_verify_resident", "ed25519_verify_full_compact"),
     "window": ("ed25519_verify_compact",),
-    "secp commit": ("secp256k1_verify", "sha256_blocks", "merkle_level"),
+    "secp commit": ("secp256k1_verify", "merkle_tree"),
     "mixed flush": ("secp256k1_verify", "ed25519_verify_resident"),
     "secp window": ("secp256k1_verify",),
     "sr flush": ("sr25519_verify",),
@@ -1419,6 +1479,19 @@ def time_kernels(vals, commit, card: str, errs: dict) -> dict:
     out["merkle_level"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                            "shape": f"{len(leaves)} leaf digests -> root, 8 levels"}
     print(f"time: merkle_level tree of {len(leaves)}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]")
+    b_ms, b_by = bound(blocks_np.nbytes + n_live_np.nbytes + 32, (int(n_live_np.sum()) + 2 * inner) * SHA_BLOCK_OPS, int_rate)
+    row = kernel_row("merkle_tree", f"{len(leaves)} validator leaves u32[{blocks_np.shape[0]},{blocks_np.shape[1]},16] -> root",
+                     lambda: merkle.merkle_tree(blocks, n_live), lambda: merkle.merkle_tree_plain(blocks, n_live), 20,
+                     blocks_np.nbytes + n_live_np.nbytes + 32, (int(n_live_np.sum()) + 2 * inner) * SHA_BLOCK_OPS,
+                     int_rate, errs, card)
+    check(sha256.digests_to_bytes_np(sha256.to_u32(row.pop("got"))[None, :])[0].tobytes() == vals.hash(device="cpu"),
+          "merkle_tree root of the validator leaves != host tree")
+    row["run_ms"] = run_ms(lambda: merkle.merkle_tree(blocks, n_live), runs=50)
+    out["merkle_tree"] = row
+    print(f"time: merkle_tree {len(leaves)} leaves: {row['run_ms']:.4f} ms a call back to back, {row['ms']:.4f} ms "
+          f"for one call from the wrapper's call to the kernel's end [{card}]")
+    print(f"time: merkle_tree replaces sha256_blocks and merkle_level's tree: {out['sha256_blocks']['ms']:.4f} + "
+          f"{out['merkle_level']['ms']:.4f} ms in 9 launches, against {row['ms']:.4f} ms in one [{card}]")
     out.update(time_new_kernels(vals, commit, card, errs, int_rate))
     return out
 
@@ -1547,15 +1620,25 @@ def time_new_kernels(vals, commit, card: str, errs: dict, int_rate: float) -> di
     rsh, valid = ed25519_batch._prepare_rsh_compact(pk_arr, msgs, sigs)
     wire, msg, mlen, valid2 = ed25519_batch.prepare_batch_device_hash_compact(pks, msgs, sigs)
     check(bool(valid.all() and valid2.all()), "the signed commit packed with an invalid lane")
-    (keys_t,) = to_dev(dev, pk_arr)
     table_ops = ed25519_key_table_ops_per_key()
-    row = kernel_row("ed25519_key_tables", f"{n} keys", lambda: ed25519_batch.key_tables_kernel(keys_t),
-                     lambda: ed25519_batch.key_tables_plain(keys_t), 2, n * (32 + ed25519_batch.KEY_TABLE_BYTES),
-                     n * table_ops, int_rate, errs, card)
-    tables = row.pop("got")
-    out = {"ed25519_key_tables": row}
-    print(f"time: ed25519_key_tables model: {table_ops} int32 instructions a key at one thread a key (the bound), "
-          f"{ed25519_key_table_ops_per_key(COMB_SLICES)} as the kernel runs them, four threads a key [{card}]")
+    out = {}
+    for keys_n, plain_runs in ((n, 2), (4096, 1)):  # a set of 4,096: the 180 keys tiled
+        (keys_t,) = to_dev(dev, pk_arr[np.arange(keys_n) % n])
+        row = kernel_row("ed25519_key_tables", f"{keys_n} keys", lambda: ed25519_batch.key_tables_kernel(keys_t),
+                         lambda: ed25519_batch.key_tables_plain(keys_t), plain_runs,
+                         keys_n * (32 + ed25519_batch.KEY_TABLE_BYTES), keys_n * table_ops, int_rate, errs, card)
+        got = row.pop("got")
+        row["run_ms"] = run_ms(lambda: ed25519_batch.key_tables_kernel(keys_t))
+        print(f"time: ed25519_key_tables {keys_n} keys: {row['run_ms']:.4f} ms a call back to back [{card}]")
+        if keys_n == n:
+            tables = got
+            out["ed25519_key_tables"] = row
+        else:
+            out["ed25519_key_tables"].update({f"{k}_{keys_n}": v for k, v in row.items()})
+    chain, worst, total = ed25519_key_table_kernel_ops()
+    print(f"time: ed25519_key_tables model: {table_ops} int32 instructions a key at one thread a key (the bound); "
+          f"as the kernel runs a key: {total}, of which each of the four chain threads {chain} (the chain to the "
+          f"last base), a helper at most {worst} [{card}]")
     full_ops = ed25519_core_g1_ops_per_lane()
     table_bytes = (n + 1) * ed25519_batch.KEY_TABLE_BYTES  # the set's tables and B's, each read once
     for batch, plain_runs in ((n, 2), (BIG_BATCH, 1)):
@@ -1768,12 +1851,16 @@ def time_end_to_end(vals, block_id, commit, window, card: str) -> None:
         rows.append(("device-hash flush gpu", wall_ms(lambda: flush(items, None), runs=20)))
     finally:
         del os.environ["CBFT_TPU_HASH"]
-    rows += [
-        ("ValidatorSet.hash cuda", wall_ms(lambda: vals.hash(device="cuda"), runs=20)),
-        ("ValidatorSet.hash host", wall_ms(lambda: vals.hash(device="cpu"), runs=20)),
-    ]
     for label, ms in rows:
         print(f"e2e: {label:34s} p50 {ms:.3f} ms host wall, {N_VALIDATORS} validators [{card}]")
+    leaves = [v.bytes() for v in vals.validators]
+    h = wall_ms_turns({"cuda": lambda: vals.hash(device="cuda"), "host": lambda: vals.hash(device="cpu"),
+                       "  of which leaf encoding": lambda: [v.bytes() for v in vals.validators],
+                       "  of which padding": lambda: sha256.pad_ragged_np(leaves, prefix=merkle.LEAF_PREFIX)},
+                      runs=40)
+    for label, (med, lo, hi) in h.items():
+        print(f"e2e: ValidatorSet.hash {label:26s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{N_VALIDATORS} validators, in turns [{card}]")
 
     def one_launch():
         mesh.configure_chunk_cap(BIG_BATCH)
@@ -1898,10 +1985,10 @@ def main() -> int:
         "ed25519_verify_resident": check_resident(dev, vals, commit),
         "ed25519_verify_full_compact": check_full_compact(dev),
         "sha256_blocks": check_sha256(dev),
-        "merkle_level": check_merkle(dev),
         "secp256k1_verify": check_secp(dev),
         "sr25519_verify": check_sr25519(dev),
     }
+    errs.update(check_merkle(dev))
     errs.update(check_words(dev))
     print(f"phase: kernels {time.perf_counter() - t0:.1f} s")
 
@@ -1909,8 +1996,8 @@ def main() -> int:
     launches, per_call, sr_timing = run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes)
     print(f"main: every path in {time.perf_counter() - t0:.1f} s")
     print(f"phase: main {time.perf_counter() - t0:.1f} s")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in sorted({k for kernels in PATHS.values() for k in kernels}):
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     print(f"main: launches {json.dumps(launches)}")
     print(f"main: launches per call {json.dumps(per_call)}")
 

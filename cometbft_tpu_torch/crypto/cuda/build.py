@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # library name -> (its .cu, then every header it includes)
 SOURCES: Dict[str, Sequence[str]] = {
     "ed25519_verify": ("ed25519_verify.cu", "fe25519.cuh", "ge25519_group.cuh", "sc25519.cuh", "sha512.cuh"),
-    "ed25519_resident": ("ed25519_resident.cu", "fe25519.cuh"),
+    "ed25519_resident": ("ed25519_resident.cu", "fe25519.cuh", "ge25519_group.cuh"),
     "sha256": ("sha256.cu", "sha256.cuh"),
     "merkle": ("merkle.cu", "sha256.cuh"),
     "secp256k1_verify": ("secp256k1_verify.cu", "fe256k1.cuh"),

@@ -48,124 +48,278 @@
 // What bounds it now: at a commit, still the latency of one thread's
 // chain (the loop and the combine), about a ninth of the first design's;
 // at a window, integer operations, about 0.36 M a lane at G = 1 against
-// 0.96 M (chip_smoke.py counts them). The key table kernel is bounded by
-// its longest chain of doublings (240, to 2^240 (-A)), once a set.
+// 0.96 M (chip_smoke.py counts them).
+//
+// ed25519_key_tables, once a set, is bounded by the latency of one key's
+// dependent chain: decompress A (fe_pow_p58), 240 doublings to
+// 2^240 (-A), an inversion to take the 60 entries to affine form. Its
+// first design ran one thread a (key, slice): each decompressed A and
+// doubled 16 t + 192 times with its own inversion, about 2,400 dependent
+// products for the last slice. This one runs the chain once a key:
+//
+// * A block holds KT_KEYS keys. Warp 0 holds their chains, a group of four
+//   threads a key (ge25519_group.cuh's dbl_group<4>: thread t holds point
+//   coordinate t, a doubling is one squaring and one product a thread).
+//   The group decompresses A (every thread of it, alike), then doubles
+//   -A 240 times; after doubling 16 k it stores base k = 2^(16 k) (-A),
+//   slice k % 4's entry 2^(k / 4), in shared memory and, for k >= 4,
+//   arrives at named barrier k - 3 without waiting.
+// * KT_HELPERS threads a key (warps 1 and 2) build the other entries as
+//   their bases arrive: base k completes entries 2^i + r = r + 2^i of
+//   slice t (k = 4 i + t, r = 1 .. 2^i - 1), one complete addition each,
+//   helper r - 1 taking entry r + 2^i. Slice 3's last base comes with the
+//   last doubling; what is left after the chain is one addition.
+// * One inversion a key, its product tree across the helpers: helper h
+//   keeps the prefix products of the Z of its 6 or 7 early entries (every
+//   entry but slice 3's last eight, ready once base 14's additions are
+//   done, while the chain still doubles) and then of its late entry (slice
+//   3's entry 9 + h, the one it adds last; base 15 itself for helper 7).
+//   After the chain each helper forms the product of the other helpers'
+//   totals, helper 0 inverts the key's product, and each helper walks its
+//   prefixes back (two products an entry) to each entry's 1/Z, then takes
+//   the entry to affine Niels form and canonical limbs.
+//
+// The longest chain: about 255 products to decompress, 240 doublings of
+// two, one addition, 8 products and the inversion's 265, then one entry's
+// walk and conversion: about 1,050 dependent products a key, against
+// about 2,400.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "ge25519_group.cuh"
 
 #define LANES_PER_BLOCK 32
 #define MAX_GROUP 4
 
-// n doublings, T computed only by the last (n >= 1).
-__device__ __forceinline__ void ge_dbl_n(ge &p, int n) {
-#pragma unroll 1
-  for (int k = 1; k < n; ++k) ge_dbl_xyz(p, p);
-  ge_dbl(p, p);
+// --- ed25519_key_tables: one doubling chain a key --------------------------
+
+#define KT_KEYS 8                             // keys a block
+#define KT_HELPERS 8                          // entry threads a key
+#define KT_THREADS (KT_KEYS * (4 + KT_HELPERS))  // 96: warp 0 the chains, warps 1-2 the helpers
+#define KT_SLOTS (COMB_SLICES * SLICE_ENTRIES)  // 64: slot 16 t + j is slice t's entry j
+#define KT_SLOT_WORDS 40                      // X, Y, Z, T, ten limbs each
+#define KT_PRE 8                              // prefix products a helper keeps
+#define KT_EARLY 52                           // entries ready before the last base
+#define KT_KEY_WORDS (KT_SLOTS * KT_SLOT_WORDS + KT_HELPERS * KT_PRE * 10 + 10 + 1)
+#define KT_SMEM (KT_KEYS * KT_KEY_WORDS * 4)  // dynamic shared memory: 102,752 bytes
+#define KT_MAX_DEVICES 64
+
+// Named barrier id (1..15; 0 is __syncthreads) of count threads: producers
+// arrive and go on, consumers wait for all of them.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
-// --- ed25519_key_tables: one thread a (key, slice) ----------------------------
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 
-__global__ void __launch_bounds__(128)
-ed25519_key_tables_kernel(const uint8_t *__restrict__ keys, int n,
-                          uint32_t *__restrict__ out) {
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n * COMB_SLICES) return;
-  const int key = gid / COMB_SLICES, t = gid % COMB_SLICES;
+// Slot of base k = 2^(16 k) (-A): slice k % 4, entry 2^(k / 4).
+__device__ __forceinline__ int base_slot(int k) { return 16 * (k & 3) + (1 << (k >> 2)); }
 
-  uint32_t aw[8];
-  const uint8_t *p8 = keys + (size_t)key * 32;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    aw[j] = (uint32_t)p8[4 * j] | ((uint32_t)p8[4 * j + 1] << 8) |
-            ((uint32_t)p8[4 * j + 2] << 16) | ((uint32_t)p8[4 * j + 3] << 24);
+// Early entry q (0..51) of a key: the slots but the identities (j = 0) and
+// slice 3's last eight.
+__device__ __forceinline__ int early_slot(int q) { return q + 1 + q / 15; }
+
+// Helper h's early entries: q = h + KT_HELPERS u below KT_EARLY (7 or 6).
+__device__ __forceinline__ int early_count(int h) { return (KT_EARLY - h + KT_HELPERS - 1) / KT_HELPERS; }
+
+// Helper h's late entry: slice 3's entry 9 + h, which it adds after the
+// last doubling; helper 7's is base 15 itself.
+__device__ __forceinline__ int late_slot(int h) { return h < 7 ? 57 + h : 56; }
+
+// Helper h's share of base k's additions: entry 2^i + r = entry r + base k
+// of slice t (k = 4 i + t, r = h + 1 < 2^i).
+__device__ __noinline__ void helper_add(uint32_t *ent, int k, int h) {
+  const int i = k >> 2, t = k & 3, r = h + 1;
+  if (r >= (1 << i)) return;
+  ge a, b, c;
+  const uint32_t *pa = ent + (16 * t + r) * KT_SLOT_WORDS, *pb = ent + base_slot(k) * KT_SLOT_WORDS;
+  load_coord(a.X, pa, 0);
+  load_coord(a.Y, pa, 1);
+  load_coord(a.Z, pa, 2);
+  load_coord(a.T, pa, 3);
+  load_coord(b.X, pb, 0);
+  load_coord(b.Y, pb, 1);
+  load_coord(b.Z, pb, 2);
+  load_coord(b.T, pb, 3);
   fe d2;
   fe_const(d2, K_D2);
+  ge_add(c, a, b, d2);
+  uint32_t *pc = ent + (16 * t + (1 << i) + r) * KT_SLOT_WORDS;
+  store_coord(pc, 0, c.X);
+  store_coord(pc, 1, c.Y);
+  store_coord(pc, 2, c.Z);
+  store_coord(pc, 3, c.T);
+}
 
-  // -A = (-x, y, 1, -x y)
-  ge p;
-  fe_from_words(p.Y, aw);
-  fe x;
-  const bool ok = decompress(x, p.Y, aw[7] >> 31);
-  fe_neg(p.X, x);
-  fe_one(p.Z);
-  fe_mul(p.T, p.X, p.Y);
-
-  // base[i] = 2^(64 i + 16 t) (-A)
-  ge base[4];
-  if (t > 0) ge_dbl_n(p, 16 * t);
-  base[0] = p;
-#pragma unroll 1
-  for (int i = 1; i < 4; ++i) {
-    ge_dbl_n(p, 64);
-    base[i] = p;
+// Row e of a key's tables: (X : Y : Z) with 1/Z = zi in affine Niels form
+// and canonical limbs, or the identity when the key does not decompress.
+__device__ __forceinline__ void store_entry(uint32_t *row, const uint32_t *slot, const fe &zi, bool ok) {
+  fe X, Y, ax, ay, v[3];
+  load_coord(X, slot, 0);
+  load_coord(Y, slot, 1);
+  fe_mul(ax, X, zi);
+  fe_mul(ay, Y, zi);
+  fe_add(v[0], ay, ax);
+  fe_sub(v[1], ay, ax);
+  fe d2;
+  fe_const(d2, K_D2);
+  fe_mul(v[2], ax, ay);
+  fe_mul(v[2], v[2], d2);
+  if (!ok) {
+    fe_one(v[0]);
+    fe_one(v[1]);
+    fe_zero(v[2]);
   }
-
-  // ent[j] = sum_i j_i base[i]
-  ge ent[SLICE_ENTRIES];
-  ge_identity(ent[0]);
-#pragma unroll 1
-  for (int j = 1; j < SLICE_ENTRIES; ++j) {
-    const int low = __ffs(j) - 1;
-    if (j == (1 << low)) {
-      ent[j] = base[low];
-    } else {
-      ge_add(ent[j], ent[j & (j - 1)], base[low], d2);
-    }
-  }
-
-  // affine by one inversion (Montgomery's trick), then Niels, canonical
-  fe pre[SLICE_ENTRIES];
-  pre[0] = ent[0].Z;
-#pragma unroll 1
-  for (int j = 1; j < SLICE_ENTRIES; ++j) fe_mul(pre[j], pre[j - 1], ent[j].Z);
-  fe inv;
-  fe_invert(inv, pre[SLICE_ENTRIES - 1]);
-  uint32_t *dst = out + (size_t)key * KEY_WORDS + (size_t)t * SLICE_ENTRIES * ENTRY_WORDS;
-#pragma unroll 1
-  for (int j = SLICE_ENTRIES - 1; j >= 0; --j) {
-    fe zi, ax, ay, v[3];
-    if (j > 0) {
-      fe_mul(zi, inv, pre[j - 1]);
-      fe_mul(inv, inv, ent[j].Z);
-    } else {
-      zi = inv;
-    }
-    fe_mul(ax, ent[j].X, zi);
-    fe_mul(ay, ent[j].Y, zi);
-    fe_add(v[0], ay, ax);
-    fe_sub(v[1], ay, ax);
-    fe_mul(v[2], ax, ay);
-    fe_mul(v[2], v[2], d2);
-    if (!ok) {  // identity entries for a key that does not decompress
-      fe_one(v[0]);
-      fe_one(v[1]);
-      fe_zero(v[2]);
-    }
-    uint32_t *e = dst + j * ENTRY_WORDS;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      fe c;
-      fe_canonical(c, v[k]);
+  for (int k = 0; k < 3; ++k) {
+    fe c;
+    fe_canonical(c, v[k]);
 #pragma unroll
-      for (int i = 0; i < 10; ++i) e[10 * k + i] = c.v[i];
-    }
-    e[30] = 0;
-    e[31] = 0;
+    for (int i = 0; i < 10; ++i) row[10 * k + i] = c.v[i];
   }
-  if (t == 0) {
-    uint32_t *flag = out + (size_t)key * KEY_WORDS + FLAG_ROW * ENTRY_WORDS;
-    flag[0] = ok ? 1u : 0u;
+  row[30] = 0;
+  row[31] = 0;
+}
+
+__global__ void __launch_bounds__(KT_THREADS)
+ed25519_key_tables_kernel(const uint8_t *__restrict__ keys, int n, uint32_t *__restrict__ out) {
+  extern __shared__ uint32_t s_kt[];
+  const int tid = threadIdx.x;
+  const bool chain = tid < 32;
+  const int kk = chain ? tid / 4 : (tid - 32) / KT_HELPERS;  // the block's key
+  const int key = blockIdx.x * KT_KEYS + kk;
+  const bool live = key < n;
+  uint32_t *ent = s_kt + kk * KT_KEY_WORDS;
+  uint32_t *pre = ent + KT_SLOTS * KT_SLOT_WORDS;  // [helper][KT_PRE][10]
+  uint32_t *inv_w = pre + KT_HELPERS * KT_PRE * 10;
+  uint32_t *ok_w = inv_w + 10;
+  uint32_t *rows = out + (size_t)key * KEY_WORDS;
+
+  if (chain) {
+    group g;
+    g.base = tid & ~3;
+    g.t = tid & 3;
+    uint32_t aw[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      aw[j] = 0;
+      if (live) {
+        const uint8_t *p8 = keys + (size_t)key * 32 + 4 * j;
+        aw[j] = (uint32_t)p8[0] | ((uint32_t)p8[1] << 8) | ((uint32_t)p8[2] << 16) | ((uint32_t)p8[3] << 24);
+      }
+    }
+    fe y, x, nx, t;
+    fe_from_words(y, aw);
+    const bool ok = decompress(x, y, aw[7] >> 31);
+    if (g.t == 0) *ok_w = ok ? 1u : 0u;
+    if (live) {  // slice t's identity entry; thread 0 the flag row
+      uint32_t *e = rows + 16 * g.t * ENTRY_WORDS;
 #pragma unroll 1
-    for (int k = 1; k < ENTRY_WORDS; ++k) flag[k] = 0;
+      for (int w = 0; w < ENTRY_WORDS; ++w) e[w] = (w == 0 || w == 10) ? 1u : 0u;
+      if (g.t == 0) {
+        uint32_t *flag = rows + FLAG_ROW * ENTRY_WORDS;
+#pragma unroll 1
+        for (int w = 0; w < ENTRY_WORDS; ++w) flag[w] = (w == 0 && ok) ? 1u : 0u;
+      }
+    }
+    // -A = (-x, y, 1, -x y); base 0
+    fe_neg(nx, x);
+    fe_mul(t, nx, y);
+    gpt<4> p;
+    affine_group(p, nx, y, t, g);
+    store_coord(ent + base_slot(0) * KT_SLOT_WORDS, g.t, p.s[0]);
+#pragma unroll 1
+    for (int d = 1; d <= 240; ++d) {
+      dbl_group<4>(p, g);
+      if ((d & 15) == 0) {
+        const int k = d >> 4;
+        store_coord(ent + base_slot(k) * KT_SLOT_WORDS, g.t, p.s[0]);
+        if (k >= 4) named_arrive(k - 3, KT_THREADS);
+      }
+    }
+    __syncthreads();  // the helpers' products
+    __syncthreads();  // the key's inverse
+    return;
+  }
+
+  const int h = (tid - 32) % KT_HELPERS;
+  uint32_t *my_pre = pre + h * KT_PRE * 10;
+  // bases 4..14: their additions as they arrive
+#pragma unroll 1
+  for (int k = 4; k < 15; ++k) {
+    named_sync(k - 3, KT_THREADS);
+    helper_add(ent, k, h);
+  }
+  named_sync(13, KT_KEYS * KT_HELPERS);  // every early entry is in place
+  const int m = early_count(h);
+  fe acc, z;
+#pragma unroll 1
+  for (int u = 0; u < m; ++u) {
+    load_coord(z, ent + early_slot(h + KT_HELPERS * u) * KT_SLOT_WORDS, 2);
+    if (u == 0) {
+      acc = z;
+    } else {
+      fe_mul(acc, acc, z);
+    }
+    store_coord(my_pre, u, acc);
+  }
+  // base 15, the last doubling's: the late entries
+  named_sync(12, KT_THREADS);
+  helper_add(ent, 15, h);
+  load_coord(z, ent + late_slot(h) * KT_SLOT_WORDS, 2);
+  fe_mul(acc, acc, z);
+  store_coord(my_pre, m, acc);
+  __syncthreads();
+
+  // o = the product of the other helpers' totals; helper 0 inverts the key's
+  fe o;
+  bool first = true;
+#pragma unroll 1
+  for (int q = 0; q < KT_HELPERS; ++q) {
+    if (q == h) continue;
+    load_coord(z, pre + q * KT_PRE * 10, early_count(q));
+    if (first) {
+      o = z;
+    } else {
+      fe_mul(o, o, z);
+    }
+    first = false;
+  }
+  if (h == 0) {
+    fe all, inv;
+    fe_mul(all, acc, o);
+    fe_invert(inv, all);
+    store_coord(inv_w, 0, inv);
+  }
+  __syncthreads();
+
+  // walk the prefixes back: cur = 1 / (the product up to entry u)
+  fe cur, zi;
+  load_coord(cur, inv_w, 0);
+  fe_mul(cur, cur, o);
+  const bool ok = *ok_w != 0;
+#pragma unroll 1
+  for (int u = m; u >= 0; --u) {
+    const int slot = u == m ? late_slot(h) : early_slot(h + KT_HELPERS * u);
+    if (u > 0) {
+      load_coord(z, my_pre, u - 1);
+      fe_mul(zi, cur, z);
+      load_coord(z, ent + slot * KT_SLOT_WORDS, 2);
+      fe_mul(cur, cur, z);
+    } else {
+      zi = cur;
+    }
+    if (live) store_entry(rows + slot * ENTRY_WORDS, ent + slot * KT_SLOT_WORDS, zi, ok);
   }
 }
 
 // --- ed25519_verify_resident: G threads a lane, one warp for R ---------------
 
-__device__ __forceinline__ void shfl_fe(fe &o, const fe &a, int mask) {
+__device__ __forceinline__ void shfl_xor_fe(fe &o, const fe &a, int mask) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) o.v[i] = __shfl_xor_sync(0xffffffffu, a.v[i], mask);
 }
@@ -250,10 +404,10 @@ ed25519_verify_resident_kernel(const uint32_t *__restrict__ keys, int N,
 #pragma unroll 1
     for (int m = 1; m < G; m <<= 1) {
       ge o;
-      shfl_fe(o.X, acc.X, m);
-      shfl_fe(o.Y, acc.Y, m);
-      shfl_fe(o.Z, acc.Z, m);
-      shfl_fe(o.T, acc.T, m);
+      shfl_xor_fe(o.X, acc.X, m);
+      shfl_xor_fe(o.Y, acc.Y, m);
+      shfl_xor_fe(o.Z, acc.Z, m);
+      shfl_xor_fe(o.T, acc.T, m);
       ge_add(acc, acc, o, d2);
     }
   }
@@ -275,9 +429,18 @@ ed25519_verify_resident_kernel(const uint32_t *__restrict__ keys, int N,
 
 extern "C" int cbt_ed25519_key_tables(const void *keys, int n, void *out,
                                       void *stream) {
-  const int threads = 128;
-  const int blocks = (n * COMB_SLICES + threads - 1) / threads;
-  ed25519_key_tables_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  // the shared memory above 48 KB, allowed once a device
+  static bool smem_allowed[KT_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= KT_MAX_DEVICES || !smem_allowed[dev]) {
+    e = cudaFuncSetAttribute(ed25519_key_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < KT_MAX_DEVICES) smem_allowed[dev] = true;
+  }
+  const int blocks = (n + KT_KEYS - 1) / KT_KEYS;
+  ed25519_key_tables_kernel<<<blocks, KT_THREADS, KT_SMEM, (cudaStream_t)stream>>>(
       (const uint8_t *)keys, n, (uint32_t *)out);
   return (int)cudaGetLastError();
 }

@@ -790,8 +790,9 @@ def verify_kernel_compact(wire: torch.Tensor) -> torch.Tensor:
 def key_tables_kernel(keys: torch.Tensor) -> torch.Tensor:
     """Comb tables int32[n, 65, 32] of each key row u8[n, 32] (see
     ``key_tables_plain``). On a CUDA tensor this launches
-    ``ed25519_key_tables`` (one thread a key and slice), or raises; a CPU
-    tensor runs ``key_tables_plain``."""
+    ``ed25519_key_tables`` (a block of eight keys: one doubling chain a key
+    over four threads, eight threads a key building its entries), or
+    raises; a CPU tensor runs ``key_tables_plain``."""
     global TABLE_LAUNCHES
     if keys.device.type == "cpu":
         return key_tables_plain(keys)

@@ -60,27 +60,34 @@ def from_u32(arr: np.ndarray, device="cpu") -> torch.Tensor:
 
 def pad_ragged_np(items, prefix: bytes = b""):
     """Variable-length messages (each prefixed) → (blocks u32[B, max_blocks,
-    16], n_live int32[B]); SHA-256 padding baked in at each length."""
+    16], n_live int32[B]); SHA-256 padding baked in at each length.
+
+    No Python loop over the items: their bytes are joined once and
+    scattered into the rows by one index array; the 0x80 terminators and
+    the bit lengths (the last two words of each row's last block) are
+    set by index too."""
     n = len(items)
     plen = len(prefix)
-    lens = np.array([plen + len(m) for m in items], np.int64)
+    item_lens = np.fromiter(map(len, items), np.int64, count=n)
+    lens = item_lens + plen
     nblocks = np.maximum((lens + 1 + 8 + 63) // 64, 1).astype(np.int32)
     max_blocks = int(nblocks.max()) if n else 1
-    buf = np.zeros((n, max_blocks * 64), np.uint8)
-    pre = np.frombuffer(prefix, np.uint8)
-    for i, m in enumerate(items):
-        ln = int(lens[i])
-        if plen:
-            buf[i, :plen] = pre
-        buf[i, plen:ln] = np.frombuffer(bytes(m), np.uint8)
-        buf[i, ln] = 0x80
-        end = int(nblocks[i]) * 64
-        buf[i, end - 8 : end] = np.frombuffer((ln * 8).to_bytes(8, "big"), np.uint8)
-    words = buf.reshape(n, max_blocks, 16, 4).astype(np.uint32)
-    packed = (
-        (words[..., 0] << 24) | (words[..., 1] << 16)
-        | (words[..., 2] << 8) | words[..., 3]
-    )
+    width = max_blocks * 64
+    buf = np.zeros((n, width), np.uint8)
+    flat = buf.reshape(-1)
+    row_starts = np.arange(n, dtype=np.int64) * width
+    data = np.frombuffer(b"".join(items), np.uint8)
+    if data.size:
+        item_starts = np.cumsum(item_lens) - item_lens
+        shift = np.repeat(row_starts + plen - item_starts, item_lens)
+        flat[np.arange(data.size, dtype=np.int64) + shift] = data
+    if plen:
+        buf[:, :plen] = np.frombuffer(prefix, np.uint8)
+    flat[row_starts + lens] = 0x80
+    packed = buf.view(">u4").astype(np.uint32).reshape(n, max_blocks, 16)
+    rows, last = np.arange(n), nblocks - 1
+    packed[rows, last, 14] = (lens * 8) >> 32  # the bit length, big-endian, ends the last block
+    packed[rows, last, 15] = (lens * 8) & 0xFFFFFFFF
     return packed, nblocks
 
 

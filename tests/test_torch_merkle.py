@@ -5,11 +5,18 @@ on the CPU.
   hashlib and the reference's XLA programs ``_sha256_blocks_xla`` and
   ``sha256_blocks_ragged``, which share the Pallas kernel's contract (the
   Pallas kernel itself is not run in interpret mode here);
-* the Merkle root through the port's device route (``merkle_level`` and
-  ragged leaf hashing, plain versions on the CPU) equals the reference's
-  host tree for n in {0, 1, 2, 3, 5, 180}, and the reference's device tree
-  for n in {3, 180};
-* the port's host tree equals the reference's.
+* the vectorised ragged padding equals the reference's ``pad_ragged_np``
+  byte for byte, empty items and both prefixes included;
+* the Merkle root through the port's device route (``merkle_tree``, plain
+  version on the CPU) equals the reference's host tree for n in {0, 1, 2,
+  3, 5, 180}, and the reference's device tree for n in {3, 180};
+* ``merkle_tree``'s plain version through its wrapper equals the
+  reference's one-program device tree (``_leaves_and_tree_kernel``) and
+  host tree for n in {1, 2, 3, 4, 5, 7, 8, 9, 180, 257}, with leaves on
+  both sides of the one- to two-block boundary (55/56 bytes with the 0x00
+  prefix);
+* one ``merkle_level`` carries the odd tail, and the port's host tree
+  equals the reference's.
 
 Digests and roots are compared with exact equality; inputs come from numpy
 with fixed seeds. One test runs every check (see tests/test_torch_field.py for why
@@ -64,6 +71,19 @@ def check_ragged_form():
         assert sha256.digests_to_bytes_np(got[i]).tobytes() == hashlib.sha256(b"\x00" + item).digest()
 
 
+def check_ragged_padding_matches_reference():
+    rng = np.random.default_rng(5)
+    for n in (0, 1, 7, 180):
+        items = [rng.bytes(int(rng.integers(0, 130))) for _ in range(n)]
+        items[: n // 3] = [b""] * (n // 3)  # empty items
+        for prefix in (b"", b"\x00"):
+            blocks, n_live = sha256.pad_ragged_np(items, prefix=prefix)
+            ref_blocks, ref_live = ref_sha.pad_ragged_np(items, prefix=prefix)
+            assert blocks.dtype == ref_blocks.dtype and n_live.dtype == ref_live.dtype, (n, prefix)
+            assert blocks.shape == ref_blocks.shape and blocks.tobytes() == ref_blocks.tobytes(), (n, prefix)
+            assert n_live.tobytes() == ref_live.tobytes(), (n, prefix)
+
+
 def check_wrapper_on_cpu_runs_the_plain_version():
     blocks = sha256.from_u32(sha256.pad_messages_np(np.zeros((2, 3), np.uint8), 3))
     before = sha256.LAUNCHES
@@ -84,6 +104,25 @@ def check_roots_match_reference_device_tree():
         items = _leaves(n, seed=n)
         want = ref_tpu_merkle.hash_from_byte_slices(items, force_device=True)
         assert merkle.hash_from_byte_slices(items, device="cpu") == want, n
+
+
+def _boundary_leaves(n: int):
+    """Items of 53 to 56 bytes (54 and 55 put the 0x00-prefixed leaf at 55
+    and 56 bytes, one block and two) and some shorter ones."""
+    rng = np.random.default_rng(100 + n)
+    return [rng.bytes(int(rng.choice([53, 54, 55, 56, int(rng.integers(1, 53))]))) for _ in range(n)]
+
+
+def check_tree_matches_reference_device_tree():
+    before = merkle.TREE_LAUNCHES
+    for n in (1, 2, 3, 4, 5, 7, 8, 9, 180, 257):
+        items = _boundary_leaves(n)
+        blocks, n_live = sha256.pad_ragged_np(items, prefix=merkle.LEAF_PREFIX)
+        root = merkle.merkle_tree(sha256.from_u32(blocks), torch.from_numpy(n_live))
+        got = sha256.digests_to_bytes_np(sha256.to_u32(root)[None, :])[0].tobytes()
+        assert got == ref_tpu_merkle.hash_from_byte_slices(items, force_device=True), n
+        assert got == ref_merkle.hash_from_byte_slices(items), n
+    assert merkle.TREE_LAUNCHES == before  # the CPU wrapper launches nothing
 
 
 def check_level_carries_the_odd_tail():
@@ -108,8 +147,10 @@ def check_split_point():
 def test_sha256_and_merkle_match_reference():
     check_fixed_form()
     check_ragged_form()
+    check_ragged_padding_matches_reference()
     check_wrapper_on_cpu_runs_the_plain_version()
     check_roots_match_reference_host_tree()
     check_roots_match_reference_device_tree()
+    check_tree_matches_reference_device_tree()
     check_level_carries_the_odd_tail()
     check_split_point()
