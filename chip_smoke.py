@@ -166,16 +166,24 @@ from cometbft_tpu_torch.crypto.cuda import (
     sr25519_batch,
     vectors,
 )
+from cometbft_tpu_torch.evidence import verify as evidence_verify
+from cometbft_tpu_torch.light import verifier as light_verifier
 from cometbft_tpu_torch.proto.gogo import Timestamp
+from cometbft_tpu_torch.proto.version import BLOCK_PROTOCOL, ConsensusVersion
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
     BlockID,
     Commit,
     CommitSig,
+    Header,
     PartSetHeader,
 )
+from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
+from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import Fraction, ValidatorSet
+from cometbft_tpu_torch.types.vote import SIGNED_MSG_TYPE_PRECOMMIT, Vote
+from cometbft_tpu_torch.types.vote_set import VoteSet
 
 SEED = 20261017
 N_VALIDATORS = 180  # Cosmos Hub x/staking max_validators
@@ -1347,6 +1355,286 @@ def words_path(vals, commit, per_call):
     print(f"main: CBFT_TPU_WIRE=words flushes of {len(items)} precommits (host hash, then device hash) == cpu")
 
 
+# --- phase 3: the verify call sites ------------------------------------------
+
+TRUSTING_PERIOD_NS = 14 * 24 * 3600 * 10**9  # two thirds of the Cosmos Hub's 21-day unbonding
+MAX_CLOCK_DRIFT_NS = 10 * 10**9  # the light client's default
+LIGHT_HEIGHT = 19_999_990  # h; h + 1 and h + LIGHT_STEP follow
+LIGHT_STEP = 10
+LIGHT_T0 = 1_759_900_000  # h's time, seconds; a block every 6 s
+
+
+def signers_of(vals):
+    """The private key of every validator of the main set, in set order,
+    from the seeded secrets of make_valset_and_commit."""
+    keys = {}
+    for i in range(N_VALIDATORS):
+        k = ed.gen_priv_key_from_secret(b"cosmoshub-val-%d" % i)
+        keys[k.pub_key().address()] = k
+    return [keys[v.address] for v in vals.validators]
+
+
+def rotated_set(vals, keys, keep, tag):
+    """A set that keeps the validators of ``vals`` at positions ``keep``
+    (set order) and gives every other seat, with its power, to a new key
+    from ``tag``; returns it and its signers in its own order."""
+    out, by_addr = [], {}
+    for i, (v, k) in enumerate(zip(vals.validators, keys)):
+        if i not in keep:
+            k = ed.gen_priv_key_from_secret(tag % i)
+        out.append(Validator.new(k.pub_key(), v.voting_power))
+        by_addr[out[-1].address] = k
+    rot = ValidatorSet(out)
+    return rot, [by_addr[v.address] for v in rot.validators]
+
+
+def light_header(height, vals, next_vals, time_s, app=b"cosmoshub-app"):
+    return Header(
+        version=ConsensusVersion(BLOCK_PROTOCOL, 1),
+        chain_id=CHAIN_ID,
+        height=height,
+        time=Timestamp(time_s, 0),
+        last_block_id=BlockID(hashlib.sha256(b"last %d" % height).digest(), PartSetHeader(1, hashlib.sha256(b"lp %d" % height).digest())),
+        last_commit_hash=hashlib.sha256(b"lc %d" % height).digest(),
+        data_hash=hashlib.sha256(b"data %d" % height).digest(),
+        validators_hash=vals.hash(device="cpu"),
+        next_validators_hash=next_vals.hash(device="cpu"),
+        consensus_hash=hashlib.sha256(b"consensus params").digest(),
+        app_hash=app,
+        last_results_hash=hashlib.sha256(b"results %d" % height).digest(),
+        evidence_hash=hashlib.sha256(b"").digest(),
+        proposer_address=vals.validators[0].address,
+    )
+
+
+def sign_header(hdr, vals, keys):
+    """The SignedHeader of ``hdr`` with a commit that all of ``vals`` sign
+    (``keys`` in set order), each at the header's time."""
+    block_id = BlockID(hdr.hash(), PartSetHeader(2, hashlib.sha256(b"parts %d" % hdr.height).digest()))
+    commit = Commit(height=hdr.height, round=0, block_id=block_id)
+    for v in vals.validators:
+        commit.signatures.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, hdr.time, b""))
+    for i, k in enumerate(keys):
+        commit.signatures[i].signature = k.sign(commit.vote_sign_bytes(CHAIN_ID, i))
+    return SignedHeader(hdr, commit)
+
+
+def power_share(kept, vals):
+    return sum(vals.validators[i].voting_power for i in kept) / vals.total_voting_power()
+
+
+def call_site_world(vals):
+    """The light chain (heights h, h + 1 by the main set; h + LIGHT_STEP
+    by a set in which 100 of the 180 stay and 80 are replaced; a rival
+    h + LIGHT_STEP by a set that keeps too little), and a lunatic attack
+    at h + LIGHT_STEP by a third rotation, all signed in pure Python."""
+    n = len(vals.validators)
+    keep_light = set(range(0, n, 2)) | set(range(1, n // 9, 2))  # 100 of 180 stay, spread over the powers
+    keep_few = set(range(n - n // 6, n))  # the 30 smallest
+    keep_lunatic = set(range(2 * n // 9, 7 * n // 9))  # 100 from the middle
+    check(len(keep_light) == len(keep_lunatic) == n * 5 // 9, "the rotations do not keep 100 of 180")
+    check(power_share(keep_few, vals) <= 1 / 3 < power_share(keep_light, vals), "the rotations' power shares")
+    check(power_share(keep_lunatic, vals) > 1 / 3, "the lunatic set keeps too little power")
+    keys = signers_of(vals)
+    rot, rot_keys = rotated_set(vals, keys, keep_light, b"cosmoshub-rotated-%d")
+    few, few_keys = rotated_set(vals, keys, keep_few, b"cosmoshub-few-%d")
+    lunatic, lunatic_keys = rotated_set(vals, keys, keep_lunatic, b"cosmoshub-lunatic-%d")
+    h, hk = LIGHT_HEIGHT, LIGHT_HEIGHT + LIGHT_STEP
+    t_h, t_hk = LIGHT_T0, LIGHT_T0 + 6 * LIGHT_STEP
+    w = {"vals": vals, "rot": rot, "few": few, "lunatic": lunatic, "keys": keys}
+    w["sh_h"] = sign_header(light_header(h, vals, vals, t_h), vals, keys)
+    w["sh_h1"] = sign_header(light_header(h + 1, vals, vals, t_h + 6), vals, keys)
+    w["sh_hk"] = sign_header(light_header(hk, rot, rot, t_hk), rot, rot_keys)
+    w["sh_few"] = sign_header(light_header(hk, few, few, t_hk), few, few_keys)
+    sh_lunatic = sign_header(light_header(hk, lunatic, lunatic, t_hk, app=b"lunatic"), lunatic, lunatic_keys)
+    w["attack"] = LightClientAttackEvidence(
+        conflicting_block=LightBlock(sh_lunatic, lunatic),
+        common_height=h,
+        byzantine_validators=[v.copy() for v in vals.validators if lunatic.has_address(v.address)],
+        total_voting_power=vals.total_voting_power(),
+        timestamp=w["sh_h"].header.time,
+    )
+    w["now"] = Timestamp(t_hk + 30, 0)
+    return w
+
+
+def corrupt_commit_sig(sh, idx):
+    bad = copy.deepcopy(sh)
+    bad.commit.signatures[idx].signature = flip(bad.commit.signatures[idx].signature, 9, 0x40)
+    return bad
+
+
+def light_calls(w):
+    """name -> fn(backend) for each light-client case: the three that
+    verify, then the failing ones."""
+    vals, rot, now = w["vals"], w["rot"], w["now"]
+    adj = (w["sh_h"], w["sh_h1"], vals, TRUSTING_PERIOD_NS)
+    non = (w["sh_h"], vals, w["sh_hk"], rot, TRUSTING_PERIOD_NS)
+    trust = Fraction(1, 3)
+    expired_now = Timestamp(LIGHT_T0 + TRUSTING_PERIOD_NS // 10**9 + 1, 0)
+    return {
+        "verify_adjacent": lambda b: light_verifier.verify_adjacent(*adj, now, MAX_CLOCK_DRIFT_NS, backend=b),
+        "verify_non_adjacent": lambda b: light_verifier.verify_non_adjacent(*non, now, MAX_CLOCK_DRIFT_NS, trust, backend=b),
+        "verify, adjacent": lambda b: light_verifier.verify(
+            w["sh_h"], vals, w["sh_h1"], vals, TRUSTING_PERIOD_NS, now, MAX_CLOCK_DRIFT_NS, trust, backend=b),
+        "verify, non-adjacent": lambda b: light_verifier.verify(*non, now, MAX_CLOCK_DRIFT_NS, trust, backend=b),
+        "corrupted signature": lambda b: light_verifier.verify_adjacent(
+            w["sh_h"], corrupt_commit_sig(w["sh_h1"], 1), vals, TRUSTING_PERIOD_NS, now, MAX_CLOCK_DRIFT_NS, backend=b),
+        "expired": lambda b: light_verifier.verify_adjacent(*adj, expired_now, MAX_CLOCK_DRIFT_NS, backend=b),
+        "from the future": lambda b: light_verifier.verify_adjacent(
+            *adj, Timestamp(LIGHT_T0 - 5, 0), MAX_CLOCK_DRIFT_NS, backend=b),
+        "validators hash": lambda b: light_verifier.verify_adjacent(
+            w["sh_h"], w["sh_h1"], rot, TRUSTING_PERIOD_NS, now, MAX_CLOCK_DRIFT_NS, backend=b),
+        "too little kept": lambda b: light_verifier.verify_non_adjacent(
+            w["sh_h"], vals, w["sh_few"], w["few"], TRUSTING_PERIOD_NS, now, MAX_CLOCK_DRIFT_NS, trust, backend=b),
+    }
+
+
+def light_path(w, per_call):
+    """The light client's verifier at 180 validators, under the default
+    backend (the card) and "cpu": verdicts and errors equal; the main set
+    and the rotated set each uploaded once."""
+    base = store_stats()
+    got = {name: compare_on_gpu_and_cpu("light", name, fn, per_call) for name, fn in light_calls(w).items()}
+    for name in ("verify_adjacent", "verify_non_adjacent", "verify, adjacent", "verify, non-adjacent"):
+        check(got[name] == ("ok",), f"light {name} did not verify: {got[name]}")
+    want = {
+        "corrupted signature": "ErrInvalidHeader", "expired": "ErrOldHeaderExpired",
+        "from the future": "ErrInvalidHeader", "validators hash": "ErrInvalidHeader",
+        "too little kept": "ErrNewValSetCantBeTrusted",
+    }
+    for name, err in want.items():
+        check(got[name][0] == err, f"light {name}: {got[name]}, want {err}")
+    st = store_stats()
+    uploads, misses = st["uploads"] - base["uploads"], st["misses"] - base["misses"]
+    check((uploads, misses) == (2, 2), f"light: {uploads} uploads, {misses} misses, want 2 and 2 (the main and rotated sets)")
+    print(f"main: light: 4 verifications and 5 failures == cpu; 2 uploads (main and rotated sets), "
+          f"{st['hits'] - base['hits']} hits")
+
+
+def preverify_and_add(vals, height, votes, backend):
+    """Consensus's batch preverify (reference consensus/state.py:393-442)
+    and add_vote: one ``new_batch_verifier(backend, subsystem="consensus")``
+    flush over ``votes``, each good one marked ``sig_batch_verified``, then
+    add_vote for each into a new VoteSet. Returns (mask, add_vote results,
+    the index of the vote at which +2/3 was reached, the VoteSet)."""
+    bv = cryptobatch.new_batch_verifier(backend, subsystem="consensus")
+    for v in votes:
+        bv.add(vals.validators[v.validator_index].pub_key, v.sign_bytes(CHAIN_ID), v.signature)
+    _, mask = bv.verify()
+    for v, ok in zip(votes, mask):
+        if ok:
+            v.sig_batch_verified = (CHAIN_ID, vals.validators[v.validator_index].pub_key.bytes())
+    vs = VoteSet(CHAIN_ID, height, 0, SIGNED_MSG_TYPE_PRECOMMIT, vals)
+    results, reached = [], None
+    for i, v in enumerate(votes):
+        results.append(vs.add_vote(v))
+        if reached is None and vs.has_two_thirds_majority():
+            reached = i
+    return mask, results, reached, vs
+
+
+def vote_set_round(vals, commit, backend, conflicting):
+    """The 180 precommits of ``commit`` as Votes, after a corrupted copy of
+    one, through preverify_and_add; then the conflicting vote. Returns
+    (mask, results, the index among the 180 at which +2/3 was reached,
+    the conflicting vote's outcome, the VoteSet)."""
+    bad = commit.get_vote(17)
+    bad.signature = flip(bad.signature, 3, 0x01)
+    votes = [bad] + [commit.get_vote(i) for i in range(len(commit.signatures))]
+    mask, results, reached, vs = preverify_and_add(vals, commit.height, votes, backend)
+    return mask, results, reached - 1, outcome(lambda: vs.add_vote(conflicting)), vs
+
+
+def conflicting_vote(vals, commit, keys, idx=5):
+    v = commit.get_vote(idx)
+    v.block_id = BlockID(hashlib.sha256(b"another block").digest(), PartSetHeader(1, hashlib.sha256(b"ap").digest()))
+    v.signature = keys[idx].sign(v.sign_bytes(CHAIN_ID))
+    return v
+
+
+def vote_set_path(vals, block_id, commit, keys, per_call):
+    """The 180 precommits preverified in one "gpu" flush (the indexed
+    route: the set is resident) and added to a VoteSet, against "cpu"; the
+    commit it makes equals the signed one and verifies on the card."""
+    conflicting = conflicting_vote(vals, commit, keys)
+    base = store_stats()
+    t0 = time.perf_counter()
+    g_mask, g_res, g_reached, g_conf, g_vs = vote_set_round(vals, commit, "gpu", conflicting)
+    gpu_s = time.perf_counter() - t0
+    st = store_stats()
+    check(st["indexed_dispatches"] == base["indexed_dispatches"] + 1 and st["uploads"] == base["uploads"],
+          "the preverify flush did not take the indexed route")
+    t0 = time.perf_counter()
+    c_mask, c_res, c_reached, c_conf, c_vs = vote_set_round(vals, commit, "cpu", conflicting)
+    cpu_s = time.perf_counter() - t0
+    check((g_mask, g_res, g_reached, g_conf) == (c_mask, c_res, c_reached, c_conf), "vote set: gpu != cpu")
+    check(g_mask == [False] + [True] * N_VALIDATORS, "the preverify mask is wrong")
+    check(not g_res[0][0] and "invalid signature" in g_res[0][1], f"the corrupted vote was added: {g_res[0]}")
+    check(all(r == (True, None) for r in g_res[1:]), "a preverified vote was not added")
+    total, acc, want_reached = vals.total_voting_power(), 0, None
+    for i, v in enumerate(vals.validators):
+        acc += v.voting_power
+        if want_reached is None and acc >= total * 2 // 3 + 1:
+            want_reached = i
+    check(g_reached == want_reached, f"+2/3 at vote {g_reached}, want {want_reached}")
+    check(g_conf[0] == "ErrVoteConflictingVotes", f"the conflicting vote: {g_conf}")
+    made = g_vs.make_commit()
+    check(made.encode() == commit.encode() == c_vs.make_commit().encode(), "make_commit != the signed commit")
+    got = compare_on_gpu_and_cpu("vote set", "verify_commit(make_commit)",
+                                 lambda b: vals.verify_commit(CHAIN_ID, block_id, made.height, made, backend=b), per_call)
+    check(got == ("ok",), "the vote set's commit did not verify")
+    print(f"main: vote set: preverify flush of {N_VALIDATORS + 1} (indexed) and {N_VALIDATORS + 1} add_vote == cpu, "
+          f"+2/3 at vote {g_reached}, conflicting vote raises, make_commit == signed commit; host wall gpu "
+          f"{gpu_s * 1e3:.1f} ms, cpu {cpu_s * 1e3:.1f} ms")
+
+
+def duplicate_vote_evidence(vals, keys, height):
+    votes = []
+    for tag in (b"block a", b"block b"):
+        bid = BlockID(hashlib.sha256(tag).digest(), PartSetHeader(1, hashlib.sha256(tag + b" parts").digest()))
+        v = Vote(type=SIGNED_MSG_TYPE_PRECOMMIT, height=height, round=0, block_id=bid,
+                 timestamp=Timestamp(LIGHT_T0, 0), validator_address=vals.validators[3].address, validator_index=3)
+        v.signature = keys[3].sign(v.sign_bytes(CHAIN_ID))
+        votes.append(v)
+    return DuplicateVoteEvidence.new(votes[0], votes[1], Timestamp(LIGHT_T0, 0), vals)
+
+
+def evidence_path(w, per_call):
+    """A lunatic light-client attack (the conflicting block signed by a
+    third rotation) passes verify_light_client_attack on the card and on
+    "cpu", after its conflicting block's validate_basic (the set's hash on
+    the card); a tampered copy fails with the same error; a duplicate vote
+    passes verify_duplicate_vote (two serial checks, as the reference's)."""
+    vals, ev = w["vals"], w["attack"]
+    base = store_stats()
+    got = compare_on_gpu_and_cpu("evidence", "conflicting validate_basic",
+                                 lambda b: ev.conflicting_block.validate_basic(CHAIN_ID, backend=b), per_call)
+    check(got == ("ok",), f"the conflicting block is not well formed: {got}")
+    args = (w["sh_h"], w["sh_hk"], vals)
+    got = compare_on_gpu_and_cpu("evidence", "verify_light_client_attack",
+                                 lambda b: evidence_verify.verify_light_client_attack(ev, *args, backend=b), per_call)
+    check(got == ("ok",), f"the lunatic attack did not verify: {got}")
+    tampered = copy.deepcopy(ev)
+    sigs = tampered.conflicting_block.signed_header.commit.signatures
+    i = next(i for i, cs in enumerate(sigs) if vals.has_address(cs.validator_address))
+    sigs[i].signature = flip(sigs[i].signature, 20, 0x08)
+    got = compare_on_gpu_and_cpu("evidence", "tampered attack",
+                                 lambda b: evidence_verify.verify_light_client_attack(tampered, *args, backend=b), per_call)
+    check(got[0] == "ValueError" and "wrong signature" in got[1], f"the tampered attack: {got}")
+    st = store_stats()
+    check(st["uploads"] - base["uploads"] == 1, "the lunatic set was not uploaded once")
+    dup = duplicate_vote_evidence(vals, w["keys"], LIGHT_HEIGHT)
+    got = outcome(lambda: evidence_verify.verify_duplicate_vote(dup, CHAIN_ID, vals))
+    check(got == ("ok",), f"the duplicate vote did not verify: {got}")
+    bad = copy.deepcopy(dup)
+    bad.vote_b.signature = flip(bad.vote_b.signature, 1, 0x01)
+    got = outcome(lambda: evidence_verify.verify_duplicate_vote(bad, CHAIN_ID, vals))
+    check(got == ("ValueError", "verifying VoteB: invalid signature"), f"the tampered duplicate vote: {got}")
+    print(f"main: evidence: lunatic attack ({len(ev.byzantine_validators)} byzantine) verifies == cpu, a tampered "
+          f"copy fails == cpu; the duplicate vote verifies, a tampered one fails")
+
+
 PATHS = {  # path -> the kernels it must launch
     "commit": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree"),
     "indexed flush": ("ed25519_verify_resident",),
@@ -1359,13 +1647,17 @@ PATHS = {  # path -> the kernels it must launch
     "three-curve flush": ("ed25519_verify_resident", "secp256k1_verify", "sr25519_verify"),
     "sr window": ("sr25519_verify",),
     "words": ("ed25519_verify_words", "ed25519_verify_full_words"),
+    "light": ("merkle_tree", "ed25519_key_tables", "ed25519_verify_resident"),
+    "vote set": ("ed25519_verify_resident",),
+    "evidence": ("merkle_tree", "ed25519_key_tables", "ed25519_verify_resident"),
 }
 
 
-def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes):
+def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes, world):
     """Each path with the counts set to 0 just before it and read just
     after; returns (launches summed over the paths, per call, the sr
-    window's timing)."""
+    window's timing). The call sites' paths run last, so that the key
+    store's uploads and hits on every earlier path stay as they were."""
     items, want = window_items(vals, commit)
     s_items, s_want = secp_window_items(svals, scommit)
     r_items, r_want = sr_window_items(sr_lanes)
@@ -1382,6 +1674,9 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes):
         "three-curve flush": lambda pc: three_curve_flush_path(vals, block_id, commit, svals, scommit, sr_lanes, pc),
         "sr window": lambda pc: sr_window_path(r_items, r_want, pc, sr_timing),
         "words": lambda pc: words_path(vals, commit, pc),
+        "light": lambda pc: light_path(world, pc),
+        "vote set": lambda pc: vote_set_path(vals, block_id, commit, world["keys"], pc),
+        "evidence": lambda pc: evidence_path(world, pc),
     }
     total = {k: 0 for k in counts()}
     per_call = {}
@@ -1876,6 +2171,42 @@ def time_end_to_end(vals, block_id, commit, window, card: str) -> None:
               f"= {BIG_BATCH / ms * 1e3:.0f} signatures/s, in turns [{card}]")
 
 
+def time_call_sites(w, commit, card: str) -> None:
+    """Host wall medians of the light client's two steps (the non-adjacent
+    one with both sets resident, and with the rotated set missing from the
+    key store: its upload and key tables included) and of consensus's
+    preverify flush with its 180 add_vote, each on the card and on "cpu" in
+    turns."""
+    store = keystore.default_store()
+    vals, calls = w["vals"], light_calls(w)
+    adjacent, non_adjacent = calls["verify_adjacent"], calls["verify_non_adjacent"]
+    rot_id = hashlib.sha256(b"".join(v.pub_key.bytes() for v in w["rot"].validators)).digest()
+
+    def miss():
+        store.invalidate(rot_id)
+        non_adjacent(None)
+
+    t = wall_ms_turns({
+        "verify_adjacent gpu": lambda: adjacent(None),
+        "verify_adjacent cpu": lambda: adjacent("cpu"),
+        "verify_non_adjacent gpu (hit)": lambda: non_adjacent(None),
+        "verify_non_adjacent gpu (miss)": miss,
+        "verify_non_adjacent cpu": lambda: non_adjacent("cpu"),
+    }, runs=8)
+    for label, (med, lo, hi) in t.items():
+        print(f"e2e: light {label:31s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{N_VALIDATORS} validators, in turns [{card}]")
+    runs, turns = 8, 4
+    pools = {b: [[commit.get_vote(i) for i in range(N_VALIDATORS)] for _ in range(runs + 1)] for b in ("gpu", "cpu")}
+    t = wall_ms_turns({
+        f"preverify + add_vote {b}": (lambda b=b: preverify_and_add(vals, commit.height, pools[b].pop(), b))
+        for b in ("gpu", "cpu")
+    }, runs=runs, turns=turns)
+    for label, (med, lo, hi) in t.items():
+        print(f"e2e: vote set {label:27s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+              f"{N_VALIDATORS} precommits, in turns [{card}]")
+
+
 def time_secp_end_to_end(svals, sblock_id, scommit, window, card: str) -> None:
     """The secp256k1 set's verify_commit on the card and on "cpu" in turns,
     its host packing alone, and the secp window's signatures per second."""
@@ -1977,6 +2308,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sr_lanes = make_sr_lanes(commit)
     print(f"main: {N_VALIDATORS} sr25519 keys signed in {time.perf_counter() - t0:.1f} s (pure Python)")
+    t0 = time.perf_counter()
+    world = call_site_world(vals)
+    print(f"main: the light chain and the attack (5 commits of {N_VALIDATORS}) signed in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     errs = {
@@ -1993,7 +2327,7 @@ def main() -> int:
     print(f"phase: kernels {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, per_call, sr_timing = run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes)
+    launches, per_call, sr_timing = run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes, world)
     print(f"main: every path in {time.perf_counter() - t0:.1f} s")
     print(f"phase: main {time.perf_counter() - t0:.1f} s")
     for name in sorted({k for kernels in PATHS.values() for k in kernels}):
@@ -2005,6 +2339,9 @@ def main() -> int:
     window, _ = window_items(vals, commit)
     time_end_to_end(vals, block_id, commit, window, card)
     profile_commit(vals, block_id, commit, card)
+    t0 = time.perf_counter()
+    time_call_sites(world, commit, card)
+    print(f"time: the call sites' timings took {time.perf_counter() - t0:.1f} s")
     s_window, _ = secp_window_items(svals, scommit)
     t0 = time.perf_counter()
     time_secp_end_to_end(svals, sblock_id, scommit, s_window, card)

@@ -1,20 +1,27 @@
 """State carried across from the reference package, as bytes.
 
-``validator_set_from_reference`` and ``commit_from_reference`` take what
-the reference's ``ValidatorSet.encode()`` (cometbft_tpu/types/
-validator_set.py:458) and ``Commit.encode()`` (types/block.py:214) produce
-— Tendermint's own protobuf wire — and return the port's objects, whose
-``encode()`` gives the same bytes back. An sr25519 public key has no
-field in the v0.34 ``keys.proto``, so ``sr25519_pub_key_from_reference``
-takes the 32 bytes of the reference's ``PubKeySr25519.bytes()``. No object
-of the reference crosses; this module imports nothing of it.
+Each ``*_from_reference`` takes what the reference's ``encode()`` (or,
+for evidence, ``bytes()``) produces — Tendermint's own protobuf wire —
+and returns the port's object, whose ``encode()`` (``bytes()``) gives the
+same bytes back: ``ValidatorSet`` (reference types/validator_set.py:458),
+``Commit`` (types/block.py:214), ``Header``, ``Block``, ``Vote``
+(types/vote.py), ``SignedHeader`` and ``LightBlock``
+(types/light_block.py), and a ``DuplicateVoteEvidence`` or
+``LightClientAttackEvidence`` (types/evidence.py, the Evidence oneof). An
+sr25519 public key has no field in the v0.34 ``keys.proto``, so
+``sr25519_pub_key_from_reference`` takes the 32 bytes of the reference's
+``PubKeySr25519.bytes()``. No object of the reference crosses; this
+module imports nothing of it.
 """
 
 from __future__ import annotations
 
 from cometbft_tpu_torch.crypto.sr25519 import PubKeySr25519
-from cometbft_tpu_torch.types.block import Commit
+from cometbft_tpu_torch.types.block import Block, Commit, Header
+from cometbft_tpu_torch.types.evidence import Evidence, decode_evidence
+from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
+from cometbft_tpu_torch.types.vote import Vote
 
 
 def validator_set_from_reference(data: bytes) -> ValidatorSet:
@@ -23,6 +30,31 @@ def validator_set_from_reference(data: bytes) -> ValidatorSet:
 
 def commit_from_reference(data: bytes) -> Commit:
     return Commit.decode(data)
+
+
+def header_from_reference(data: bytes) -> Header:
+    return Header.decode(data)
+
+
+def signed_header_from_reference(data: bytes) -> SignedHeader:
+    return SignedHeader.decode(data)
+
+
+def light_block_from_reference(data: bytes) -> LightBlock:
+    return LightBlock.decode(data)
+
+
+def vote_from_reference(data: bytes) -> Vote:
+    return Vote.decode(data)
+
+
+def block_from_reference(data: bytes) -> Block:
+    return Block.decode(data)
+
+
+def evidence_from_reference(data: bytes) -> Evidence:
+    """Either evidence type, from the reference's ``Evidence.bytes()``."""
+    return decode_evidence(data)
 
 
 def sr25519_pub_key_from_reference(data: bytes) -> PubKeySr25519:

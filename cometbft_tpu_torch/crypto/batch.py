@@ -25,21 +25,48 @@ to the serial ``PubKey.verify_signature``. Two backends:
 ``ValidatorSet`` takes under ``"gpu"``: the set's keys stay on the card
 across heights and each commit ships R ‖ S ‖ h.
 
-``backend`` is a name from the registry (None means ``"gpu"``: entry
-points run on the card unless the caller asks for ``"cpu"``, and raise
-when there is no card) or a callable that returns a BatchVerifier, such
-as ``lambda: GPUBatchVerifier(device="cpu")``.
+``backend`` is a name from the registry (None means the default,
+``"gpu"``: entry points run on the card unless the caller asks for
+``"cpu"``, and raise when there is no card), a ``BackendSpec``, a
+callable that returns a BatchVerifier, such as ``lambda:
+GPUBatchVerifier(device="cpu")``, or a verify scheduler (``.submit`` and
+``.spec``), whose spec decides every route (reference :26-66, :413-494).
+A supervisor (``.verify_items`` and ``.spec``) raises NotImplementedError
+until the port has one.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from cometbft_tpu_torch.crypto import PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import secp256k1 as secp
 from cometbft_tpu_torch.crypto import sr25519 as sr
+
+
+@dataclass(frozen=True)
+class BackendSpec:
+    """A backend name with its node's [crypto] tuning, threaded through
+    the parameter a bare name travels (reference batch.py:26).
+    ``max_chunk`` caps the lanes of one launch of a GPUBatchVerifier made
+    from it (``crypto/cuda/mesh.py``'s chunk cap, for that verifier
+    only). ``min_batch`` is the reference's CPU/device routing floor; the
+    port has none and does not read it, so a node's config carries across
+    unchanged."""
+
+    name: str
+    min_batch: Optional[int] = None
+    max_chunk: Optional[int] = None
+
+
+# what a verify path takes where a backend goes: a name, a BackendSpec, a
+# factory callable, or a scheduler (.submit + .spec) or supervisor
+# (.verify_items + .spec) resolved through its spec
+Backend = Union[str, BackendSpec, None, Callable[[], "BatchVerifier"], object]
 
 
 class BatchVerifier:
@@ -92,15 +119,22 @@ class GPUBatchVerifier(_Collecting):
     plain torch version, as the CPU tests do. Constructing it for a CUDA
     device that is not there raises RuntimeError."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", max_chunk: Optional[int] = None):
         super().__init__()
         import torch
 
         self.device = torch.device(device)
+        self.max_chunk = max_chunk
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the gpu backend needs a CUDA device; none is available")
 
     def verify(self) -> Tuple[bool, List[bool]]:
+        from cometbft_tpu_torch.crypto.cuda import mesh
+
+        with mesh.chunk_cap_scope(self.max_chunk):
+            return self._verify()
+
+    def _verify(self) -> Tuple[bool, List[bool]]:
         from cometbft_tpu_torch.crypto.cuda import ed25519_batch, keystore, secp256k1_batch, sr25519_batch
 
         items = self._take()
@@ -138,35 +172,123 @@ _registry: Dict[str, Callable[[], BatchVerifier]] = {
     "cpu": CPUBatchVerifier,
     "gpu": GPUBatchVerifier,
 }
-DEFAULT_BACKEND = "gpu"
+_default_backend = "gpu"
+_mtx = threading.Lock()
 
-Backend = Union[str, None, Callable[[], BatchVerifier]]
+
+def register_backend(name: str, factory: Callable[[], BatchVerifier]) -> None:
+    with _mtx:
+        _registry[name] = factory
 
 
-def new_batch_verifier(backend: Backend = None) -> BatchVerifier:
+def set_default_backend(name: str) -> None:
+    global _default_backend
+    with _mtx:
+        if name not in _registry:
+            raise ValueError(f"unknown crypto backend {name!r}")
+        _default_backend = name
+
+
+def default_backend() -> str:
+    return _default_backend
+
+
+def _is_scheduler(backend) -> bool:
+    return hasattr(backend, "submit") and hasattr(backend, "spec")
+
+
+def _is_supervisor(backend) -> bool:
+    return hasattr(backend, "verify_items") and hasattr(backend, "spec")
+
+
+def unwrap_backend(backend: Backend):
+    """A scheduler or supervisor travels the same parameter a backend
+    name does; every routing decision resolves against its spec."""
+    if _is_scheduler(backend) or _is_supervisor(backend):
+        return backend.spec
+    return backend
+
+
+def backend_name(backend: Backend) -> Optional[str]:
+    """The registry name ``backend`` resolves to; None for a factory
+    callable, which has none."""
+    backend = unwrap_backend(backend)
+    if isinstance(backend, BackendSpec):
+        return backend.name
+    if callable(backend):
+        return None
+    return backend or _default_backend
+
+
+class ScheduledBatchVerifier(_Collecting):
+    """add()/verify() on top of a verify scheduler (an object with
+    ``.submit`` and ``.spec``, reference crypto/scheduler.py): verify()
+    submits the collected items as one request, tagged with the caller's
+    subsystem, and blocks on its future, so the scheduler can coalesce
+    them with what other callers have pending."""
+
+    def __init__(self, scheduler, subsystem: Optional[str] = None):
+        super().__init__()
+        self._scheduler = scheduler
+        self._subsystem = subsystem
+
+    def verify(self) -> Tuple[bool, List[bool]]:
+        items = self._take()
+        if not items:
+            return False, []
+        return self._scheduler.submit(items, subsystem=self._subsystem).result()
+
+
+def new_batch_verifier(backend: Backend = None, subsystem: Optional[str] = None) -> BatchVerifier:
+    """A verifier for ``backend``: a scheduler gets a
+    ScheduledBatchVerifier that submits under ``subsystem``; a callable is
+    called; a name or a BackendSpec is looked up in the registry, and a
+    GPUBatchVerifier built from a spec carries its ``max_chunk``.
+    ``subsystem`` only tags a scheduler's requests (QoS class and
+    metering there), as in the reference."""
+    if _is_scheduler(backend):
+        return ScheduledBatchVerifier(backend, subsystem=subsystem)
+    if _is_supervisor(backend):
+        raise NotImplementedError(
+            "a BackendSupervisor (.verify_items + .spec) needs the port's crypto/supervisor.py, "
+            "which is not written yet (ROADMAP, \"Scheduler, supervisor, device topology\")"
+        )
     if callable(backend):
         return backend()
-    name = backend or DEFAULT_BACKEND
-    factory = _registry.get(name)
+    with _mtx:
+        name = backend_name(backend)
+        factory = _registry.get(name)
     if factory is None:
         raise ValueError(f"unknown crypto backend {name!r}")
-    return factory()
+    bv = factory()
+    if isinstance(backend, BackendSpec) and isinstance(bv, GPUBatchVerifier):
+        bv.max_chunk = backend.max_chunk
+    return bv
 
 
-def _resident_device(backend: Backend):
-    """The device of the resident commit route for ``backend``, or None
-    when it does not take that route (anything but a GPUBatchVerifier).
-    Building the verifier raises for "gpu" without a card."""
-    bv = new_batch_verifier(backend)
+def supports_batch_verification(pub_key: PubKey) -> bool:
+    return pub_key.type() in (ed.KEY_TYPE, secp.KEY_TYPE, sr.KEY_TYPE)
+
+
+def backend_device(backend: Backend = None):
+    """The device ``backend`` verifies on: a GPUBatchVerifier's device
+    (the card under "gpu", raising without one; the plain twins' device
+    for ``lambda: GPUBatchVerifier(device="cpu")``), or None for a backend
+    that verifies on the host ("cpu"). A scheduler or supervisor is
+    resolved to its spec first. The resident commit route runs there, and
+    so does the hash of a validator set that a caller verifies against
+    (``ValidatorSet.hash(device=None)`` is the host tree)."""
+    bv = new_batch_verifier(unwrap_backend(backend))
     return bv.device if isinstance(bv, GPUBatchVerifier) else None
 
 
 def resident_commit_eligible(n_present: int, backend: Backend = None) -> bool:
     """True when a commit with ``n_present`` signatures takes the
-    resident route: under "gpu" (or a callable giving a GPUBatchVerifier)
-    and never under "cpu". There is no routing floor: a one-signature
-    commit goes to the card like any other."""
-    return n_present > 0 and _resident_device(backend) is not None
+    resident route: under "gpu" (or a BackendSpec, scheduler or callable
+    that resolves to a GPUBatchVerifier) and never under "cpu". There is
+    no routing floor: a one-signature commit goes to the card like any
+    other."""
+    return n_present > 0 and backend_device(backend) is not None
 
 
 def verify_commit_valset(
@@ -180,7 +302,7 @@ def verify_commit_valset(
     verify_valset_resident``), or None when ``backend`` does not take the
     resident route. Every key must be Ed25519; msgs[i]/sigs[i] None is an
     absent lane, False in the result."""
-    device = _resident_device(backend)
+    device = backend_device(backend)
     if device is None:
         return None
     from cometbft_tpu_torch.crypto.cuda import ed25519_batch

@@ -263,8 +263,9 @@ def hash_route(n: int) -> str:
     """Where h = SHA-512(R ‖ A ‖ M) mod L runs for an n-lane batch: the
     pin when set, else ``host``. The reference picks the device above a
     crossover measured at warm-up and the host while it is unmeasured;
-    the port has no calibration yet (ROADMAP A.6), so ``auto`` is the
-    host. Either way the verification runs on the card."""
+    the port has no calibration yet (ROADMAP, "Calibration, warm-up,
+    memory and the wire ledger"), so ``auto`` is the host. Either way the
+    verification runs on the card."""
     mode = hash_mode()
     return "host" if mode == "auto" else mode
 

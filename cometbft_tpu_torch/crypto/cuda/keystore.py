@@ -61,8 +61,8 @@ class KeyStoreEntry:
 
 def _topo_generation() -> int:
     """The device-topology generation. The single seam for staleness:
-    one device, no topology yet (ROADMAP A.4), so always 0; tests patch
-    it to bump."""
+    one device, no topology yet (ROADMAP, "Scheduler, supervisor, device
+    topology"), so always 0; tests patch it to bump."""
     return 0
 
 

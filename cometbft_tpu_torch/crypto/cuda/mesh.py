@@ -16,15 +16,17 @@ cancel event raises ``DispatchCancelled`` at the next chunk edge.
 The reference's side copy stream, pinned staging and pipeline and
 prefetch depths are left out: at a blocksync window the host's packing
 takes about 50 times the kernel's time, and the plain loop measured the
-same as the pipelined one on the card (PERF.md). Still to port (ROADMAP
-A.4, A.6): the OOM shrink ladder under ``chunk_cap``, the memory guard,
-topology routes and telemetry spans.
+same as the pipelined one on the card (PERF.md). Still to port: the OOM
+shrink ladder under ``chunk_cap`` and the memory guard (ROADMAP,
+"Calibration, warm-up, memory and the wire ledger"), topology routes and
+telemetry spans (ROADMAP, "Scheduler, supervisor, device topology").
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from contextlib import contextmanager
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -84,12 +86,32 @@ def configure_chunk_cap(cap: Optional[int]) -> None:
     _configured_cap = None if cap is None else _positive_int(cap, "max_chunk")
 
 
+_scoped = threading.local()
+
+
+@contextmanager
+def chunk_cap_scope(cap: Optional[int]):
+    """Within the block, on this thread, ``cap`` takes the place of the
+    configured cap (None leaves it). A verifier built from a
+    ``crypto.batch.BackendSpec`` carries its node's ``max_chunk`` this
+    way, so two nodes in one process keep their own caps."""
+    prev = getattr(_scoped, "cap", None)
+    _scoped.cap = prev if cap is None else _positive_int(cap, "max_chunk")
+    try:
+        yield
+    finally:
+        _scoped.cap = prev
+
+
 def resolve_chunk_cap(default: int) -> int:
-    """CBFT_TPU_MAX_CHUNK (validated) beats the configured cap beats the
-    caller's per-curve default."""
+    """CBFT_TPU_MAX_CHUNK (validated) beats this thread's scoped cap beats
+    the configured cap beats the caller's per-curve default."""
     raw = os.environ.get("CBFT_TPU_MAX_CHUNK")
     if raw is not None:
         return _positive_int(raw, "CBFT_TPU_MAX_CHUNK")
+    scoped = getattr(_scoped, "cap", None)
+    if scoped is not None:
+        return scoped
     return default if _configured_cap is None else _configured_cap
 
 

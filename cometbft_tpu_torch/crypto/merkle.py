@@ -1,5 +1,6 @@
-"""RFC-6962 Merkle root (reference: cometbft_tpu/crypto/merkle.py;
-crypto/merkle/tree.go).
+"""RFC-6962 Merkle root, proofs and proof operators (reference:
+cometbft_tpu/crypto/merkle.py:97-383; crypto/merkle/{tree.go,proof.go,
+proof_op.go,proof_value.go,proof_key_path.go}).
 
   leaf  = SHA256(0x00 || leaf_bytes)
   inner = SHA256(0x01 || left || right)
@@ -9,13 +10,17 @@ crypto/merkle/tree.go).
 ``hash_from_byte_slices`` is the recursive host tree. Given an explicit
 CUDA ``device`` it computes the same root on the card
 (crypto/cuda/merkle.py) instead; there is no global switch and no size
-threshold.
+threshold. Proofs and the proof operators run on the host.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Optional, Sequence
+import urllib.parse
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from cometbft_tpu_torch.libs import protoio
 
 LEAF_PREFIX = b"\x00"
 INNER_PREFIX = b"\x01"
@@ -66,3 +71,286 @@ def hash_from_byte_slices(items: Sequence[bytes], device: Optional[object] = Non
     left = hash_from_byte_slices(items[:k])
     right = hash_from_byte_slices(items[k:])
     return inner_hash(left, right)
+
+
+# ---------------------------------------------------------------------------
+# Proofs (crypto/merkle/proof.go)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Proof:
+    total: int
+    index: int
+    leaf_hash: bytes
+    aunts: List[bytes] = field(default_factory=list)
+
+    def verify(self, root_hash: bytes, leaf: bytes) -> None:
+        """Raises ValueError on mismatch (reference: Proof.Verify)."""
+        if self.total < 0:
+            raise ValueError("proof total must be positive")
+        if self.index < 0:
+            raise ValueError("proof index cannot be negative")
+        lh = leaf_hash(leaf)
+        if lh != self.leaf_hash:
+            raise ValueError(
+                f"invalid leaf hash: wanted {lh.hex()} got {self.leaf_hash.hex()}"
+            )
+        computed = self.compute_root_hash()
+        if computed is None:
+            raise ValueError("malformed proof: cannot compute root hash")
+        if computed != root_hash:
+            raise ValueError(
+                f"invalid root hash: wanted {root_hash.hex()} got {computed.hex()}"
+            )
+
+    def compute_root_hash(self) -> Optional[bytes]:
+        return _compute_hash_from_aunts(
+            self.index, self.total, self.leaf_hash, self.aunts
+        )
+
+
+def _compute_hash_from_aunts(
+    index: int, total: int, leaf: bytes, aunts: List[bytes]
+) -> Optional[bytes]:
+    if index >= total or index < 0 or total <= 0:
+        return None
+    if total == 1:
+        if aunts:
+            return None
+        return leaf
+    if not aunts:
+        return None
+    k = get_split_point(total)
+    if index < k:
+        left = _compute_hash_from_aunts(index, k, leaf, aunts[:-1])
+        if left is None:
+            return None
+        return inner_hash(left, aunts[-1])
+    right = _compute_hash_from_aunts(index - k, total - k, leaf, aunts[:-1])
+    if right is None:
+        return None
+    return inner_hash(aunts[-1], right)
+
+
+def proofs_from_byte_slices(
+    items: Sequence[bytes],
+) -> Tuple[bytes, List[Proof]]:
+    """Root hash + one proof per item (reference: ProofsFromByteSlices)."""
+    trails, root = _trails_from_byte_slices(list(items))
+    root_hash = root.hash
+    proofs = []
+    for i, trail in enumerate(trails):
+        proofs.append(
+            Proof(
+                total=len(items),
+                index=i,
+                leaf_hash=trail.hash,
+                aunts=trail.flatten_aunts(),
+            )
+        )
+    return root_hash, proofs
+
+
+class _ProofNode:
+    __slots__ = ("hash", "parent", "left", "right")
+
+    def __init__(self, h: bytes):
+        self.hash = h
+        self.parent: Optional["_ProofNode"] = None
+        self.left: Optional["_ProofNode"] = None  # left sibling
+        self.right: Optional["_ProofNode"] = None  # right sibling
+
+    def flatten_aunts(self) -> List[bytes]:
+        aunts: List[bytes] = []
+        node: Optional[_ProofNode] = self
+        while node is not None:
+            if node.left is not None:
+                aunts.append(node.left.hash)
+            elif node.right is not None:
+                aunts.append(node.right.hash)
+            node = node.parent
+        return aunts
+
+
+def _trails_from_byte_slices(items: List[bytes]):
+    n = len(items)
+    if n == 0:
+        return [], _ProofNode(empty_hash())
+    if n == 1:
+        trail = _ProofNode(leaf_hash(items[0]))
+        return [trail], trail
+    k = get_split_point(n)
+    lefts, left_root = _trails_from_byte_slices(items[:k])
+    rights, right_root = _trails_from_byte_slices(items[k:])
+    root = _ProofNode(inner_hash(left_root.hash, right_root.hash))
+    left_root.parent = root
+    left_root.right = right_root
+    right_root.parent = root
+    right_root.left = left_root
+    return lefts + rights, root
+
+
+# ---------------------------------------------------------------------------
+# Proof operators (crypto/merkle/proof_op.go) — chained verification used by
+# the light-client RPC proxy for ABCI query proofs.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ProofOp:
+    type: str
+    key: bytes
+    data: bytes
+
+    def encode(self) -> bytes:
+        """proto crypto.ProofOp {string type=1, bytes key=2, bytes data=3}."""
+        out = b""
+        if self.type:
+            out += protoio.field_string(1, self.type)
+        out += protoio.field_bytes(2, self.key)
+        out += protoio.field_bytes(3, self.data)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ProofOp":
+        r = protoio.WireReader(data)
+        out = cls("", b"", b"")
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.type = r.read_string()
+            elif f == 2:
+                out.key = r.read_bytes()
+            elif f == 3:
+                out.data = r.read_bytes()
+            else:
+                r.skip(wt)
+        return out
+
+
+@dataclass
+class ProofOps:
+    """proto crypto.ProofOps {repeated ProofOp ops=1} — carried in ABCI
+    query responses (abci ResponseQuery.proof_ops)."""
+
+    ops: List[ProofOp] = field(default_factory=list)
+
+    def encode(self) -> bytes:
+        return b"".join(protoio.field_message(1, op.encode()) for op in self.ops)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ProofOps":
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.ops.append(ProofOp.decode(r.read_bytes()))
+            else:
+                r.skip(wt)
+        return out
+
+
+class ProofOperator:
+    def run(self, leaves: List[bytes]) -> List[bytes]:
+        raise NotImplementedError
+
+    def get_key(self) -> bytes:
+        raise NotImplementedError
+
+    def proof_op(self) -> ProofOp:
+        raise NotImplementedError
+
+
+class ValueOp(ProofOperator):
+    """Proves a value at a key under a merkle root
+    (reference: crypto/merkle/proof_value.go)."""
+
+    TYPE = "simple:v"
+
+    def __init__(self, key: bytes, proof: Proof):
+        self._key = key
+        self._proof = proof
+
+    def run(self, leaves: List[bytes]) -> List[bytes]:
+        if len(leaves) != 1:
+            raise ValueError("ValueOp expects one leaf")
+        value = leaves[0]
+        vhash = _sha(value)
+        # leaf structure: KVPair-ish encoding of key/value hash
+        leaf = (
+            protoio.field_bytes(1, self._key) + protoio.field_bytes(2, vhash)
+        )
+        lh = leaf_hash(leaf)
+        if lh != self._proof.leaf_hash:
+            raise ValueError("leaf hash mismatch in ValueOp")
+        root = self._proof.compute_root_hash()
+        if root is None:
+            raise ValueError("bad proof in ValueOp")
+        return [root]
+
+    def get_key(self) -> bytes:
+        return self._key
+
+
+class ProofRuntime:
+    """Registry of proof-op decoders + chained verification
+    (reference: proof_op.go ProofRuntime.VerifyValue)."""
+
+    def __init__(self):
+        self._decoders: Dict[str, object] = {}
+
+    def register_op_decoder(self, typ: str, decoder) -> None:
+        self._decoders[typ] = decoder
+
+    def decode_proof(self, ops: List[ProofOp]) -> List[ProofOperator]:
+        out = []
+        for op in ops:
+            dec = self._decoders.get(op.type)
+            if dec is None:
+                raise ValueError(f"unregistered proof op type {op.type!r}")
+            out.append(dec(op))
+        return out
+
+    def verify_value(
+        self, ops: List[ProofOp], root: bytes, keypath: str, value: bytes
+    ) -> None:
+        self.verify(ops, root, keypath, [value])
+
+    def verify(
+        self, ops: List[ProofOp], root: bytes, keypath: str, args: List[bytes]
+    ) -> None:
+        operators = self.decode_proof(ops)
+        keys = _keypath_to_keys(keypath)
+        for op in operators:
+            key = op.get_key()
+            if key:
+                if not keys:
+                    raise ValueError(f"key path exhausted, op needs {key!r}")
+                if keys[-1] != key:
+                    raise ValueError(
+                        f"key mismatch: op key {key!r} != path {keys[-1]!r}"
+                    )
+                keys.pop()
+            args = op.run(args)
+        if keys:
+            raise ValueError("keypath not fully consumed")
+        if not args or args[0] != root:
+            raise ValueError("computed root does not match")
+
+
+def _keypath_to_keys(path: str) -> List[bytes]:
+    """Reference: proof_key_path.go — '/store/key' URL-ish paths; 'x:' prefix
+    means hex-encoded key."""
+    if not path.startswith("/"):
+        raise ValueError("keypath must start with /")
+    keys = []
+    for part in path.split("/")[1:]:
+        if not part:
+            continue
+        if part.startswith("x:"):
+            keys.append(bytes.fromhex(part[2:]))
+        else:
+            keys.append(urllib.parse.unquote(part).encode())
+    return keys

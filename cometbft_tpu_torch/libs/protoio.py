@@ -142,6 +142,9 @@ class WireReader:
         self.pos += n
         return out
 
+    def read_string(self) -> str:
+        return self.read_bytes().decode("utf-8")
+
     def skip(self, wire_type: int) -> None:
         if wire_type == WIRE_VARINT:
             self.read_uvarint()

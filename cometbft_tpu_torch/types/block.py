@@ -1,18 +1,31 @@
-"""BlockID, CommitSig and Commit (reference: cometbft_tpu/types/block.py;
-types/block.go, proto/tendermint/types/types.proto).
+"""Block, Header, Data, Commit, BlockID — the core chain data structures.
 
-Only what commit verification needs: the wire encoding and decoding, and
-the sign bytes of one commit signature.
+Reference: cometbft_tpu/types/block.py (types/block.go). Wire layouts
+follow proto/tendermint/types/types.proto exactly (field numbers noted
+inline); hashes follow Header.Hash (block.go:440), Commit.Hash
+(block.go:894), Data.Hash (block.go:1004), EvidenceList hashing
+(evidence.go). Every hash here is the host tree, as the reference's
+default is (crypto/merkle.py:57-80): a header is 14 leaves, a commit one
+leaf a validator.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
+from cometbft_tpu_torch.crypto import merkle, tmhash
 from cometbft_tpu_torch.libs import protoio
-from cometbft_tpu_torch.proto.gogo import ZERO_TIME, Timestamp
+from cometbft_tpu_torch.proto.gogo import (
+    ZERO_TIME,
+    Timestamp,
+    cdc_encode_bytes,
+    cdc_encode_int64,
+    cdc_encode_string,
+)
+from cometbft_tpu_torch.proto.version import BLOCK_PROTOCOL, ConsensusVersion
 from cometbft_tpu_torch.types import canonical
+from cometbft_tpu_torch.types.tx import Txs
 
 # BlockIDFlag (proto/tendermint/types/types.proto:17-20)
 BLOCK_ID_FLAG_ABSENT = 1
@@ -31,7 +44,9 @@ class PartSetHeader:
         return self.total == 0 and len(self.hash) == 0
 
     def encode(self) -> bytes:
-        return protoio.field_varint(1, self.total) + protoio.field_bytes(2, self.hash)
+        return protoio.field_varint(1, self.total) + protoio.field_bytes(
+            2, self.hash
+        )
 
     @classmethod
     def decode(cls, data: bytes) -> "PartSetHeader":
@@ -47,6 +62,13 @@ class PartSetHeader:
                 r.skip(wt)
         return cls(total, h)
 
+    def validate_basic(self) -> None:
+        if self.total < 0:
+            raise ValueError("negative Total")
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError(f"wrong PartSetHeader hash size {len(self.hash)}")
+
+
 @dataclass(frozen=True)
 class BlockID:
     """proto: {bytes hash=1, PartSetHeader part_set_header=2 (non-null)}
@@ -58,8 +80,16 @@ class BlockID:
     def is_zero(self) -> bool:
         return len(self.hash) == 0 and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        """Reference: BlockID.IsComplete — fully set."""
+        return (
+            len(self.hash) == tmhash.SIZE
+            and self.part_set_header.total > 0
+            and len(self.part_set_header.hash) == tmhash.SIZE
+        )
+
     def encode(self) -> bytes:
-        # part_set_header is gogoproto non-nullable: always emitted
+        # part_set_header is gogoproto non-nullable → always emitted
         return protoio.field_bytes(1, self.hash) + protoio.field_message(
             2, self.part_set_header.encode()
         )
@@ -78,15 +108,27 @@ class BlockID:
                 r.skip(wt)
         return cls(h, psh)
 
+    def validate_basic(self) -> None:
+        if self.hash and len(self.hash) != tmhash.SIZE:
+            raise ValueError("wrong BlockID hash size")
+        self.part_set_header.validate_basic()
+
+    def key(self) -> bytes:
+        """Map key (reference: BlockID.Key())."""
+        return self.hash + self.part_set_header.encode()
+
     def __str__(self) -> str:
         return f"{self.hash.hex().upper()[:12]}:{self.part_set_header.total}"
 
 
 @dataclass
 class CommitSig:
-    """One validator's commit signature. proto: {BlockIDFlag
-    block_id_flag=1, bytes validator_address=2, Timestamp timestamp=3
-    (non-null), bytes signature=4} (types.proto:116)."""
+    """One validator's commit signature.
+
+    proto: {BlockIDFlag block_id_flag=1, bytes validator_address=2,
+    Timestamp timestamp=3 (non-null stdtime), bytes signature=4}
+    (types.proto:116).
+    """
 
     block_id_flag: int = BLOCK_ID_FLAG_ABSENT
     validator_address: bytes = b""
@@ -95,6 +137,7 @@ class CommitSig:
 
     @classmethod
     def absent(cls) -> "CommitSig":
+        """Reference: NewCommitSigAbsent."""
         return cls(BLOCK_ID_FLAG_ABSENT, b"", ZERO_TIME, b"")
 
     def for_block(self) -> bool:
@@ -130,21 +173,42 @@ class CommitSig:
         return out
 
     def block_id(self, commit_block_id: BlockID) -> BlockID:
-        """The BlockID this signature endorses (CommitSig.BlockID)."""
+        """BlockID this sig endorses (reference: CommitSig.BlockID)."""
         if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
             return commit_block_id
         return BlockID()
+
+    def validate_basic(self) -> None:
+        if self.block_id_flag not in (
+            BLOCK_ID_FLAG_ABSENT,
+            BLOCK_ID_FLAG_COMMIT,
+            BLOCK_ID_FLAG_NIL,
+        ):
+            raise ValueError(f"unknown BlockIDFlag {self.block_id_flag}")
+        if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
+            if self.validator_address:
+                raise ValueError("validator address present for absent CommitSig")
+            if self.signature:
+                raise ValueError("signature present for absent CommitSig")
+        else:
+            if len(self.validator_address) != 20:
+                raise ValueError("expected 20-byte validator address")
+            if not self.signature:
+                raise ValueError("signature is missing")
+            if len(self.signature) > 64:
+                raise ValueError("signature too big")
 
 
 @dataclass
 class Commit:
     """proto: {int64 height=1, int32 round=2, BlockID block_id=3 (non-null),
-    repeated CommitSig signatures=4} (types.proto:108)."""
+    repeated CommitSig signatures=4 (non-null)} (types.proto:108)."""
 
     height: int = 0
     round: int = 0
     block_id: BlockID = field(default_factory=BlockID)
     signatures: List[CommitSig] = field(default_factory=list)
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
 
     def encode(self) -> bytes:
         out = (
@@ -174,9 +238,34 @@ class Commit:
                 r.skip(wt)
         return out
 
+    def hash(self) -> bytes:
+        """Merkle root over proto-encoded CommitSigs (block.go:894)."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [cs.encode() for cs in self.signatures]
+            )
+        return self._hash
+
+    def get_vote(self, val_idx: int) -> "object":
+        """Reconstruct the precommit Vote for signature val_idx
+        (reference: Commit.GetVote)."""
+        from cometbft_tpu_torch.types.vote import SIGNED_MSG_TYPE_PRECOMMIT, Vote
+
+        cs = self.signatures[val_idx]
+        return Vote(
+            type=SIGNED_MSG_TYPE_PRECOMMIT,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+        )
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """Sign bytes of signature val_idx: the precommit it signed
-        (block.go:270 Commit.VoteSignBytes)."""
+        (block.go:270 Commit.VoteSignBytes), without building the Vote."""
         cs = self.signatures[val_idx]
         return canonical.canonical_vote_bytes(
             chain_id,
@@ -186,3 +275,352 @@ class Commit:
             cs.block_id(self.block_id),
             cs.timestamp,
         )
+
+    def validate_basic(self) -> None:
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_zero():
+                raise ValueError("commit cannot be for nil block")
+            if not self.signatures:
+                raise ValueError("no signatures in commit")
+            for i, cs in enumerate(self.signatures):
+                try:
+                    cs.validate_basic()
+                except ValueError as e:
+                    raise ValueError(f"wrong CommitSig #{i}: {e}") from e
+
+
+@dataclass
+class Data:
+    """Block transactions. proto: {repeated bytes txs=1} (types.proto:85)."""
+
+    txs: Txs = field(default_factory=Txs)
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = self.txs.hash()
+        return self._hash
+
+    def encode(self) -> bytes:
+        out = b""
+        for tx in self.txs:
+            out += protoio.field_bytes(1, bytes(tx))
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Data":
+        r = protoio.WireReader(data)
+        txs = []
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                txs.append(r.read_bytes())
+            else:
+                r.skip(wt)
+        return cls(Txs(txs))
+
+
+@dataclass
+class Header:
+    """Block header. proto field numbers per types.proto:58-81; hash layout
+    per types/block.go:440-475 (merkle root over the 14 field encodings,
+    using gogo wrapper encodings for scalars — encoding_helper.go:11)."""
+
+    version: ConsensusVersion = field(default_factory=ConsensusVersion)
+    chain_id: str = ""
+    height: int = 0
+    time: Timestamp = ZERO_TIME
+    last_block_id: BlockID = field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+
+    def encode(self) -> bytes:
+        return (
+            protoio.field_message(1, self.version.encode())
+            + protoio.field_string(2, self.chain_id)
+            + protoio.field_varint(3, self.height)
+            + protoio.field_message(4, self.time.encode())
+            + protoio.field_message(5, self.last_block_id.encode())
+            + protoio.field_bytes(6, self.last_commit_hash)
+            + protoio.field_bytes(7, self.data_hash)
+            + protoio.field_bytes(8, self.validators_hash)
+            + protoio.field_bytes(9, self.next_validators_hash)
+            + protoio.field_bytes(10, self.consensus_hash)
+            + protoio.field_bytes(11, self.app_hash)
+            + protoio.field_bytes(12, self.last_results_hash)
+            + protoio.field_bytes(13, self.evidence_hash)
+            + protoio.field_bytes(14, self.proposer_address)
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Header":
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.version = ConsensusVersion.decode(r.read_bytes())
+            elif f == 2:
+                out.chain_id = r.read_string()
+            elif f == 3:
+                out.height = r.read_varint()
+            elif f == 4:
+                out.time = Timestamp.decode(r.read_bytes())
+            elif f == 5:
+                out.last_block_id = BlockID.decode(r.read_bytes())
+            elif f == 6:
+                out.last_commit_hash = r.read_bytes()
+            elif f == 7:
+                out.data_hash = r.read_bytes()
+            elif f == 8:
+                out.validators_hash = r.read_bytes()
+            elif f == 9:
+                out.next_validators_hash = r.read_bytes()
+            elif f == 10:
+                out.consensus_hash = r.read_bytes()
+            elif f == 11:
+                out.app_hash = r.read_bytes()
+            elif f == 12:
+                out.last_results_hash = r.read_bytes()
+            elif f == 13:
+                out.evidence_hash = r.read_bytes()
+            elif f == 14:
+                out.proposer_address = r.read_bytes()
+            else:
+                r.skip(wt)
+        return out
+
+    def hash(self) -> Optional[bytes]:
+        """types/block.go:440 — returns None when ValidatorsHash unset."""
+        if not self.validators_hash:
+            return None
+        return merkle.hash_from_byte_slices(
+            [
+                self.version.encode(),
+                cdc_encode_string(self.chain_id),
+                cdc_encode_int64(self.height),
+                self.time.encode(),
+                self.last_block_id.encode(),
+                cdc_encode_bytes(self.last_commit_hash),
+                cdc_encode_bytes(self.data_hash),
+                cdc_encode_bytes(self.validators_hash),
+                cdc_encode_bytes(self.next_validators_hash),
+                cdc_encode_bytes(self.consensus_hash),
+                cdc_encode_bytes(self.app_hash),
+                cdc_encode_bytes(self.last_results_hash),
+                cdc_encode_bytes(self.evidence_hash),
+                cdc_encode_bytes(self.proposer_address),
+            ]
+        )
+
+    def validate_basic(self) -> None:
+        """Reference: Header.ValidateBasic (types/block.go:378-432). Every
+        hash field uses ValidateHash semantics: empty OR exactly 32 bytes
+        (types/validation.go:32-40)."""
+        if self.version.block != BLOCK_PROTOCOL:
+            raise ValueError(
+                f"block protocol is incorrect: got {self.version.block}, "
+                f"want {BLOCK_PROTOCOL}"
+            )
+        if len(self.chain_id) > 50:
+            raise ValueError("chainID too long")
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.height == 0:
+            raise ValueError("zero Height")
+        self.last_block_id.validate_basic()
+        for name, h in [
+            ("LastCommitHash", self.last_commit_hash),
+            ("DataHash", self.data_hash),
+            ("EvidenceHash", self.evidence_hash),
+            ("ValidatorsHash", self.validators_hash),
+            ("NextValidatorsHash", self.next_validators_hash),
+            ("ConsensusHash", self.consensus_hash),
+            ("LastResultsHash", self.last_results_hash),
+        ]:
+            if h and len(h) != tmhash.SIZE:
+                raise ValueError(f"wrong {name} size")
+        # NOTE: AppHash is arbitrary length
+        if len(self.proposer_address) != 20:
+            raise ValueError("invalid ProposerAddress length")
+
+
+@dataclass
+class Block:
+    """proto (types/block.proto): {Header header=1 (non-null), Data data=2
+    (non-null), EvidenceList evidence=3 (non-null), Commit last_commit=4}."""
+
+    header: Header = field(default_factory=Header)
+    data: Data = field(default_factory=Data)
+    evidence: List[object] = field(default_factory=list)  # EvidenceList
+    last_commit: Optional[Commit] = None
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def hash(self) -> Optional[bytes]:
+        """Block hash == header hash (reference: Block.Hash)."""
+        if self.header is None or self.last_commit is None:
+            return None
+        if self._hash is None:
+            self._hash = self.header.hash()
+        return self._hash
+
+    def encode(self) -> bytes:
+        from cometbft_tpu_torch.types.evidence import encode_evidence_list
+
+        out = protoio.field_message(1, self.header.encode())
+        out += protoio.field_message(2, self.data.encode())
+        out += protoio.field_message(3, encode_evidence_list(self.evidence))
+        if self.last_commit is not None:
+            out += protoio.field_message(4, self.last_commit.encode())
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Block":
+        from cometbft_tpu_torch.types.evidence import decode_evidence_list
+
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.header = Header.decode(r.read_bytes())
+            elif f == 2:
+                out.data = Data.decode(r.read_bytes())
+            elif f == 3:
+                out.evidence = decode_evidence_list(r.read_bytes())
+            elif f == 4:
+                out.last_commit = Commit.decode(r.read_bytes())
+            else:
+                r.skip(wt)
+        return out
+
+    def size(self) -> int:
+        return len(self.encode())
+
+    def fill_header(self) -> None:
+        """Compute derived header hashes (reference: Block.fillHeader)."""
+        from cometbft_tpu_torch.types.evidence import evidence_list_hash
+
+        if not self.header.last_commit_hash and self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash()
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = evidence_list_hash(self.evidence)
+
+    def validate_basic(self) -> None:
+        from cometbft_tpu_torch.types.evidence import evidence_list_hash
+
+        self.header.validate_basic()
+        if self.last_commit is None:
+            raise ValueError("nil LastCommit")
+        self.last_commit.validate_basic()
+        if self.header.last_commit_hash != self.last_commit.hash():
+            raise ValueError("wrong LastCommitHash")
+        if self.header.data_hash != self.data.hash():
+            raise ValueError("wrong DataHash")
+        for i, ev in enumerate(self.evidence):
+            try:
+                ev.validate_basic()
+            except ValueError as e:
+                raise ValueError(f"invalid evidence (#{i}): {e}") from e
+        if self.header.evidence_hash != evidence_list_hash(self.evidence):
+            raise ValueError("wrong EvidenceHash")
+
+    def make_part_set(self, part_size: int):
+        from cometbft_tpu_torch.types.part_set import PartSet
+
+        return PartSet.from_data(self.encode(), part_size)
+
+
+@dataclass
+class BlockMeta:
+    """proto: {BlockID block_id=1 (non-null), int64 block_size=2,
+    Header header=3 (non-null), int64 num_txs=4} (types.proto:145)."""
+
+    block_id: BlockID = field(default_factory=BlockID)
+    block_size: int = 0
+    header: Header = field(default_factory=Header)
+    num_txs: int = 0
+
+    def encode(self) -> bytes:
+        return (
+            protoio.field_message(1, self.block_id.encode())
+            + protoio.field_varint(2, self.block_size)
+            + protoio.field_message(3, self.header.encode())
+            + protoio.field_varint(4, self.num_txs)
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "BlockMeta":
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.block_id = BlockID.decode(r.read_bytes())
+            elif f == 2:
+                out.block_size = r.read_varint()
+            elif f == 3:
+                out.header = Header.decode(r.read_bytes())
+            elif f == 4:
+                out.num_txs = r.read_varint()
+            else:
+                r.skip(wt)
+        return out
+
+    @classmethod
+    def from_block(cls, block: Block, block_parts) -> "BlockMeta":
+        return cls(
+            block_id=BlockID(block.hash(), block_parts.header()),
+            block_size=block.size(),
+            header=block.header,
+            num_txs=len(block.data.txs),
+        )
+
+
+def make_block(
+    height: int, txs, last_commit: Commit, evidence: list
+) -> Block:
+    """Reference: types/test_util.go:87-101 MakeBlock — sets
+    Version.Block = BlockProtocol and fills derived header hashes."""
+    block = Block(
+        header=Header(
+            version=ConsensusVersion(block=BLOCK_PROTOCOL, app=0),
+            height=height,
+        ),
+        data=Data(txs=Txs(txs)),
+        evidence=list(evidence),
+        last_commit=last_commit,
+    )
+    block.fill_header()
+    return block
+
+
+def commit_to_vote_set(chain_id: str, commit: Commit, vals) -> "object":
+    """Reference: types/vote_set.go CommitToVoteSet."""
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+    from cometbft_tpu_torch.types.vote import SIGNED_MSG_TYPE_PRECOMMIT
+
+    vote_set = VoteSet(
+        chain_id, commit.height, commit.round, SIGNED_MSG_TYPE_PRECOMMIT, vals
+    )
+    for idx, cs in enumerate(commit.signatures):
+        if cs.is_absent():
+            continue
+        vote = commit.get_vote(idx)
+        added, err = vote_set.add_vote(vote)
+        if not added:
+            raise ValueError(f"failed to reconstruct LastCommit: {err}")
+    return vote_set

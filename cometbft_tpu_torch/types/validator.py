@@ -86,6 +86,14 @@ class Validator:
             raise ValueError("validator missing pubkey")
         return cls(address, pk, vp, pp)
 
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValueError("validator has negative voting power")
+        if len(self.address) != 20:
+            raise ValueError("validator address is the wrong size")
+
     def __str__(self) -> str:
         return (
             f"Validator{{{self.address.hex().upper()[:12]} VP:{self.voting_power} "

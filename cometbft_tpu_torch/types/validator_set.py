@@ -15,7 +15,9 @@ passes ``backend="cpu"``; ``hash()`` runs on the card unless the caller passes
 Proposer selection (a deterministic weighted round-robin over proposer
 priorities) follows validator_set.go IncrementProposerPriority /
 RescalePriorities / shiftByAvgProposerPriority exactly, including Go's
-truncation-toward-zero integer division.
+truncation-toward-zero integer division; NewValidatorSet and
+``update_with_change_set`` share the reference's one change-set routine
+(deletes, computeNewPriorities; reference :203-272).
 """
 
 from __future__ import annotations
@@ -86,7 +88,9 @@ class ValidatorSet:
         self.proposer: Optional[Validator] = None
         self._total_voting_power = 0
         if validators:
-            self._set_validators(validators)
+            self._update_with_change_set(
+                [v.copy() for v in validators], allow_deletes=False
+            )
             self.increment_proposer_priority(1)
 
     # -- basic accessors ---------------------------------------------------
@@ -112,11 +116,27 @@ class ValidatorSet:
                 )
         self._total_voting_power = total
 
+    def has_address(self, address: bytes) -> bool:
+        return any(v.address == address for v in self.validators)
+
     def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
         for i, v in enumerate(self.validators):
             if v.address == address:
                 return i, v.copy()
         return -1, None
+
+    def get_by_index(self, index: int) -> Tuple[bytes, Optional[Validator]]:
+        if index < 0 or index >= len(self.validators):
+            return b"", None
+        v = self.validators[index]
+        return v.address, v.copy()
+
+    def copy(self) -> "ValidatorSet":
+        new = ValidatorSet([])
+        new.validators = [v.copy() for v in self.validators]
+        new.proposer = self.proposer.copy() if self.proposer else None
+        new._total_voting_power = self._total_voting_power
+        return new
 
     def hash(self, device="cuda") -> bytes:
         """Merkle root over SimpleValidator encodings
@@ -127,6 +147,13 @@ class ValidatorSet:
         )
 
     # -- proposer selection (validator_set.go:160-345) ---------------------
+
+    def get_proposer(self) -> Optional[Validator]:
+        if not self.validators:
+            return None
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer.copy()
 
     def _find_proposer(self) -> Validator:
         proposer = None
@@ -181,33 +208,78 @@ class ValidatorSet:
         total = sum(v.proposer_priority for v in self.validators)
         return total // len(self.validators)
 
-    # -- NewValidatorSet's changeset on an empty set (validator_set.go:365-660)
+    # -- updates (validator_set.go:365-660) --------------------------------
 
-    def _set_validators(self, validators: List[Validator]) -> None:
-        """updateWithChangeSet with no deletes, applied to an empty set:
-        validate, give every validator the new-validator priority
-        -1.125 * total power, center, then sort by power desc, address asc."""
-        vals = sorted((v.copy() for v in validators), key=lambda v: v.address)
-        for a, b in zip(vals, vals[1:]):
+    def update_with_change_set(self, changes: List[Validator]) -> None:
+        self._update_with_change_set(changes, allow_deletes=True)
+
+    def _update_with_change_set(
+        self, changes: List[Validator], allow_deletes: bool
+    ) -> None:
+        if not changes:
+            return
+        # processChanges: sort by address, reject duplicates, split
+        sorted_changes = sorted(changes, key=lambda v: v.address)
+        for a, b in zip(sorted_changes, sorted_changes[1:]):
             if a.address == b.address:
                 raise ValueError(f"duplicate entry {b} in changes")
-        for v in vals:
+        updates, deletes = [], []
+        for v in sorted_changes:
             if v.voting_power < 0:
                 raise ValueError(f"voting power can't be negative: {v}")
             if v.voting_power > MAX_TOTAL_VOTING_POWER:
                 raise ValueError("to prevent clipping/overflow, voting power too large")
-        if any(v.voting_power == 0 for v in vals):
+            if v.voting_power == 0:
+                deletes.append(v)
+            else:
+                updates.append(v)
+        if not allow_deletes and deletes:
             raise ValueError("cannot process validators with voting power 0")
-        total = sum(v.voting_power for v in vals)
-        if total > MAX_TOTAL_VOTING_POWER:
+        # verifyRemovals
+        removed_voting_power = 0
+        for v in deletes:
+            _, val = self.get_by_address(v.address)
+            if val is None:
+                raise ValueError(f"failed to find validator {v.address.hex()} to remove")
+            removed_voting_power += val.voting_power
+        if len(deletes) > len(self.validators):
+            raise ValueError("more deletes than validators")
+        # verifyUpdates: check resulting total power
+        delta = 0
+        by_addr: Dict[bytes, Validator] = {v.address: v for v in self.validators}
+        for u in updates:
+            prev = by_addr.get(u.address)
+            delta += u.voting_power - (prev.voting_power if prev else 0)
+        tvp_after_updates_before_removals = self.total_voting_power() + delta if self.validators else delta
+        if tvp_after_updates_before_removals - removed_voting_power > MAX_TOTAL_VOTING_POWER:
             raise ValueError(
                 "failed to add/update validators: total voting power would exceed limit"
             )
-        for v in vals:
-            v.proposer_priority = -(total + (total >> 3))
-        self.validators = vals
-        self._total_voting_power = total
-        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * total)
+        # computeNewPriorities (validator_set.go computeNewPriorities):
+        # new validators start at -1.125 * (total power after updates)
+        for u in updates:
+            prev = by_addr.get(u.address)
+            if prev is None:
+                u.proposer_priority = -(
+                    tvp_after_updates_before_removals
+                    + (tvp_after_updates_before_removals >> 3)
+                )
+            else:
+                u.proposer_priority = prev.proposer_priority
+        # applyUpdates + applyRemovals
+        delete_addrs = {v.address for v in deletes}
+        merged = {v.address: v for v in self.validators}
+        for u in updates:
+            merged[u.address] = u
+        for addr in delete_addrs:
+            merged.pop(addr, None)
+        self.validators = list(merged.values())
+        self._total_voting_power = 0
+        self._update_total_voting_power()
+        # scale and center, then canonical sort: power desc, address asc
+        self.rescale_priorities(
+            PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        )
         self._shift_by_avg_proposer_priority()
         self.validators.sort(key=lambda v: (-v.voting_power, v.address))
 
@@ -413,6 +485,26 @@ class ValidatorSet:
             else:
                 r.skip(wt)
         return vs
+
+    def validate_basic(self) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("validator set is nil or empty")
+        for idx, v in enumerate(self.validators):
+            try:
+                v.validate_basic()
+            except ValueError as e:
+                raise ValueError(f"invalid validator #{idx}: {e}") from e
+        if self.proposer is not None:
+            self.proposer.validate_basic()
+
+    def __iter__(self):
+        return iter(self.validators)
+
+    def __str__(self) -> str:
+        return (
+            f"ValidatorSet{{Proposer: {self.proposer}, "
+            f"Validators: {[str(v) for v in self.validators]}}}"
+        )
 
 
 def cs_sig(commit: Commit, idx: int) -> bytes:

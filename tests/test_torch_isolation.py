@@ -20,16 +20,21 @@ import torch
 import cometbft_tpu_torch
 from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import purepy
 from cometbft_tpu_torch.crypto import sr25519 as sr
 from cometbft_tpu_torch.crypto.cuda import ed25519_batch, sr25519_batch
+from cometbft_tpu_torch.light import verifier as light_verifier
 from cometbft_tpu_torch.proto.gogo import Timestamp
+from cometbft_tpu_torch.proto.version import BLOCK_PROTOCOL, ConsensusVersion
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
     BlockID,
     Commit,
     CommitSig,
+    Header,
     PartSetHeader,
 )
+from cometbft_tpu_torch.types.light_block import SignedHeader
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
 
@@ -55,10 +60,26 @@ def check_imports_in_a_fresh_interpreter(tmp_path):
         for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__, "cometbft_tpu_torch.")
     )
     assert {
+        "cometbft_tpu_torch.abci.types",
         "cometbft_tpu_torch.crypto.cuda.ed25519_batch",
         "cometbft_tpu_torch.crypto.cuda.sr25519_batch",
+        "cometbft_tpu_torch.crypto.merkle",
         "cometbft_tpu_torch.crypto.merlin",
         "cometbft_tpu_torch.crypto.sr25519",
+        "cometbft_tpu_torch.evidence.verify",
+        "cometbft_tpu_torch.libs.bits",
+        "cometbft_tpu_torch.light.errors",
+        "cometbft_tpu_torch.light.verifier",
+        "cometbft_tpu_torch.proto.gogo",
+        "cometbft_tpu_torch.proto.version",
+        "cometbft_tpu_torch.types.block",
+        "cometbft_tpu_torch.types.evidence",
+        "cometbft_tpu_torch.types.light_block",
+        "cometbft_tpu_torch.types.part_set",
+        "cometbft_tpu_torch.types.tx",
+        "cometbft_tpu_torch.types.validator_set",
+        "cometbft_tpu_torch.types.vote",
+        "cometbft_tpu_torch.types.vote_set",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -138,6 +159,43 @@ def check_entry_points_default_to_the_card(tmp_path, monkeypatch):
         torch.cuda.is_available = real
 
 
+def check_light_verifier_needs_the_card(tmp_path, monkeypatch):
+    """``light.verifier.verify_adjacent`` under the default backend raises
+    without a card, before any signature or the validator set's hash runs
+    on the host; under "cpu" the same call verifies."""
+    priv = ed.gen_priv_key_from_secret(b"isolation-light")
+    vals = ValidatorSet([Validator.new(priv.pub_key(), 10)])
+    vals_hash = vals.hash(device="cpu")
+    signed = []
+    for height in (1, 2):
+        hdr = Header(
+            version=ConsensusVersion(BLOCK_PROTOCOL, 0), chain_id="c", height=height,
+            time=Timestamp(1_000 + height, 0), validators_hash=vals_hash,
+            next_validators_hash=vals_hash, proposer_address=vals.validators[0].address,
+        )
+        block_id = BlockID(hdr.hash(), PartSetHeader(1, b"\x02" * 32))
+        commit = Commit(height=height, round=0, block_id=block_id)
+        commit.signatures.append(CommitSig(BLOCK_ID_FLAG_COMMIT, vals.validators[0].address, hdr.time, b""))
+        commit.signatures[0].signature = priv.sign(commit.vote_sign_bytes("c", 0))
+        signed.append(SignedHeader(hdr, commit))
+    args = (signed[0], signed[1], vals, 10**12, Timestamp(1_010, 0), 10**9)
+    light_verifier.verify_adjacent(*args, backend="cpu")
+    ran = []
+    monkeypatch.setattr(purepy, "ed25519_verify", lambda *a: ran.append("signature"))
+    real_hash = ValidatorSet.hash
+    monkeypatch.setattr(ValidatorSet, "hash", lambda self, device="cuda": ran.append(("hash", device)) or real_hash(self, device))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        light_verifier.verify_adjacent(*args)
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("verify_adjacent ran without a CUDA device")
+    # only the header's own 14-leaf hash ran, on the host as in the
+    # reference: no signature, and the validator set was not hashed
+    assert ran == [], ran
+
+
 def check_chip_smoke_fails_without_a_card(tmp_path):
     r = _run([_SMOKE])
     assert r.returncode != 0
@@ -157,5 +215,7 @@ def test_port_is_isolated_and_never_falls_back(tmp_path, monkeypatch):
     check_gpu_backend_raises_without_a_card(tmp_path)
     with monkeypatch.context() as m:
         check_entry_points_default_to_the_card(tmp_path, m)
+    with monkeypatch.context() as m:
+        check_light_verifier_needs_the_card(tmp_path, m)
     check_chip_smoke_fails_without_a_card(tmp_path)
     check_chip_smoke_fails_without_the_repo(tmp_path)
