@@ -101,6 +101,30 @@ goes wrong:
              the indexed flush also checks that a
              GPUBatchVerifier(device="cuda:0") finds the set uploaded
              under "cuda" (no second upload);
+             then the call sites (light, vote set, evidence: see their
+             functions), and last the verify plane:
+             verify plane  — one VerifyScheduler over one
+                             BackendSupervisor over "gpu" (100%
+                             synchronous audit, warm-up canary first);
+                             four threads released together: consensus's
+                             preverify and add_vote of the 180 precommits,
+                             blocksync's window, the light client's two
+                             steps, the lunatic attack; then one flush of
+                             180 Ed25519, 180 secp256k1 and 180 sr25519
+                             lanes. Every verdict and error == "cpu"; the
+                             supervisor healthy with no trip, kill,
+                             mismatch, CPU verdict, shed or drop; fewer
+                             flushes than requests, consensus first in
+                             its flush;
+             verify plane faults — a supervisor over a fault plan in front
+                             of "gpu" for each phase: three exceptions
+                             walk the breaker to broken and the canary
+                             re-admits the card; one corrupted dispatch is
+                             caught by the synchronous audit; one OOM
+                             halves the chunk cap and two clean dispatches
+                             recover it; one hang is killed by the
+                             watchdog and its zombie leaves; verdicts ==
+                             "cpu" throughout;
 4. times   — host wall medians of verify_commit (resident hit, the
              keyed compact route, "cpu"; the resident miss, upload and
              table build included, apart), the flushes and
@@ -126,7 +150,11 @@ goes wrong:
              output equal to the wrapper's: the resident and secp256k1
              kernels at B=180, 4,096 and 16,384, the two wire-key cores
              (ed25519_verify_compact at 180, 8,192 and 16,384,
-             sr25519_verify at 180 and 8,192).
+             sr25519_verify at 180 and 8,192); the verify plane's
+             preverify flush of the 180 precommits against bare "gpu"
+             and "cpu", and the four call sites' round from four threads
+             through the plane against one after another on bare "gpu",
+             in turns.
 
 Each phase prints its seconds ("phase:" lines).
 
@@ -138,12 +166,14 @@ without one.
 from __future__ import annotations
 
 import copy
+import gc
 import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -151,8 +181,9 @@ import torch
 
 from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import ed25519 as ed
+from cometbft_tpu_torch.crypto import faults
 from cometbft_tpu_torch.crypto import merkle as host_merkle
-from cometbft_tpu_torch.crypto import purepy
+from cometbft_tpu_torch.crypto import purepy, scheduler, supervisor
 from cometbft_tpu_torch.crypto import secp256k1 as secp
 from cometbft_tpu_torch.crypto import sr25519 as sr
 from cometbft_tpu_torch.crypto.cuda import (
@@ -164,6 +195,7 @@ from cometbft_tpu_torch.crypto.cuda import (
     secp256k1_batch,
     sha256,
     sr25519_batch,
+    topology,
     vectors,
 )
 from cometbft_tpu_torch.evidence import verify as evidence_verify
@@ -1635,6 +1667,277 @@ def evidence_path(w, per_call):
           f"copy fails == cpu; the duplicate vote verifies, a tampered one fails")
 
 
+# --- phase 3: the verify plane -------------------------------------------------
+
+# The healthy round's deadline: long enough for four submitters released
+# together to share one flush. A node's is 500 µs, and at that deadline
+# the round does not coalesce (time_verify_plane counts its flushes).
+PLANE_FLUSH_US = 250_000
+PLANE_LANE_BUDGET = 32_768  # the window and the consensus preverify fit one flush
+
+
+def plane_stats(sched, sup) -> dict:
+    """The counters the healthy round holds at zero (and the audits)."""
+    m, qos = sup.metrics, sched.queue_snapshot().get("qos", {}).get("classes", {})
+    return {
+        "trips": faults_total(m.trips), "watchdog_kills": m.watchdog_kills.value(),
+        "audit_mismatches": m.audit_mismatches.value(), "audits": m.audits.value(),
+        "cpu_routed": m.cpu_routed.value(), "cpu_verdicts": m.cpu_verdicts.value(),
+        "failures": m.failures.value(), "scheduler_cpu_fallbacks": sched.metrics.cpu_fallbacks.value(),
+        "backpressure_cpu": sched.metrics.backpressure_timeouts.value(),
+        "shed": sum(c["sheds"] for c in qos.values()), "dropped": sum(c["drops"] for c in qos.values()),
+    }
+
+
+def faults_total(counter) -> float:
+    """A counter summed over its labelled series."""
+    return sum(c.value() for c in counter._series())
+
+
+def build_plane(audit_pct: int, flush_us: int = PLANE_FLUSH_US):
+    """One VerifyScheduler over one BackendSupervisor over "gpu", its
+    warm-up canary passed; the supervisor's verify_items records each
+    flush's origins (subsystem order within the flush)."""
+    sup = supervisor.BackendSupervisor(spec="gpu", audit_pct=audit_pct, audit_sync=True, hedge_pct=0)
+    sup.warmup_canary()
+    wait_until(lambda: faults_total(sup.metrics.probes) >= 1, 120, "the warm-up canary")
+    check(sup.state() == supervisor.HEALTHY, f"the warm-up canary left the supervisor {sup.state()}")
+    flushes = []
+    inner = sup.verify_items
+
+    def recording(items, reason="direct", origins=None, route=None):
+        flushes.append([sub for _, sub, _ in origins or []])
+        return inner(items, reason=reason, origins=origins, route=route)
+
+    sup.verify_items = recording
+    sched = scheduler.VerifyScheduler(spec="gpu", supervisor=sup, flush_us=flush_us, lane_budget=PLANE_LANE_BUDGET)
+    sched.start()
+    return sched, sup, flushes
+
+
+def wait_until(cond, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def call_site_round(w, commit, window, backend, threaded: bool):
+    """The four call sites (consensus's preverify and add_vote of the 180
+    precommits, blocksync's window flush, the light client's two steps,
+    the lunatic attack's verification) on ``backend``: from four threads
+    released together, or one after another. Returns {site: outcome}."""
+    vals, calls = w["vals"], light_calls(w)
+    args = (w["sh_h"], w["sh_hk"], vals)
+    sites = {
+        "consensus": lambda: vote_set_round(vals, commit, backend, w["conflicting"])[:4],
+        "blocksync": lambda: tuple(flush_tagged(window, backend, "blocksync")),
+        "light": lambda: (outcome(lambda: calls["verify_adjacent"](backend)),
+                          outcome(lambda: calls["verify_non_adjacent"](backend))),
+        "evidence": lambda: outcome(lambda: evidence_verify.verify_light_client_attack(w["attack"], *args, backend=backend)),
+    }
+    if not threaded:
+        return {name: fn() for name, fn in sites.items()}
+    out, barrier = {}, threading.Barrier(len(sites))
+
+    def run(name, fn):
+        barrier.wait()
+        try:
+            out[name] = fn()
+        except Exception as e:  # noqa: BLE001 - reported as the site's outcome
+            out[name] = ("raised", type(e).__name__, str(e))
+
+    threads = [threading.Thread(target=run, args=kv, name=f"call-site-{kv[0]}") for kv in sites.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def flush_tagged(items, backend, subsystem):
+    bv = cryptobatch.new_batch_verifier(backend, subsystem=subsystem)
+    for pk, msg, sig in items:
+        bv.add(pk, msg, sig)
+    return bv.verify()
+
+
+def three_curve_items(vals, commit, svals, scommit, sr_lanes):
+    """The 180 Ed25519, 180 secp256k1 and 180 sr25519 lanes interleaved,
+    one of each corrupted (as three_curve_flush_path)."""
+    batches = [precommits(vals, commit), precommits(svals, scommit), list(sr_lanes)]
+    for batch, lane in zip(batches, (5, 7, 9)):
+        pk, msg, sig = batch[lane]
+        batch[lane] = (pk, msg, flip(sig, 9, 0x40))
+    return [it for triple in zip(*batches) for it in triple]
+
+
+def verify_plane_path(w, commit, window, window_want, mixed, per_call):
+    """The healthy round: one scheduler over one supervisor over "gpu"
+    (100% synchronous audit), the four call sites submitting at once,
+    then one three-curve flush; every verdict and error equal to "cpu",
+    no fallback of any kind, the consensus request first in its flush,
+    fewer flushes than requests."""
+    keystore.default_store().invalidate()  # the sets go up again on this path
+    sched, sup, flushes = build_plane(audit_pct=100)
+    try:
+        t0 = time.perf_counter()
+        got = call_site_round(w, commit, window, sched, threaded=True)
+        round_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_mixed = flush_tagged(mixed, sched, None)
+        mixed_s = time.perf_counter() - t0
+        requests = sched.metrics.requests.value()
+        dispatches = sched.n_dispatches
+        stats = plane_stats(sched, sup)
+        state = sup.state()
+        reasons = sched.queue_snapshot()["flush_reasons"]
+    finally:
+        sched.stop()
+        sup.stop()
+    want = {
+        "consensus": vote_set_round(w["vals"], commit, "cpu", w["conflicting"])[:4],
+        "blocksync": (all(window_want), window_want),
+        "light": (outcome(lambda: light_calls(w)["verify_adjacent"]("cpu")),
+                  outcome(lambda: light_calls(w)["verify_non_adjacent"]("cpu"))),
+        "evidence": outcome(lambda: evidence_verify.verify_light_client_attack(
+            w["attack"], w["sh_h"], w["sh_hk"], w["vals"], backend="cpu")),
+    }
+    for site in want:
+        check(got[site] == want[site], f"verify plane {site}: {str(got[site])[:300]} != cpu {str(want[site])[:300]}")
+    check(got["light"] == (("ok",), ("ok",)) and got["evidence"] == ("ok",), f"light/evidence did not verify: {got}")
+    want_mixed = flush(mixed, "cpu")
+    check(got_mixed == want_mixed and want_mixed[1].count(False) == 3, "verify plane three-curve flush != cpu")
+    check(state == supervisor.HEALTHY, f"the supervisor ended {state}")
+    check(stats["audits"] > 0 and all(v == 0 for k, v in stats.items() if k != "audits"),
+          f"the healthy round fell back, tripped or shed: {stats}")
+    check(dispatches < requests, f"{dispatches} flushes for {requests} requests: nothing coalesced")
+    with_consensus = [f for f in flushes if "consensus" in f]
+    check(with_consensus and all(f[0] == "consensus" for f in with_consensus),
+          f"a flush carrying consensus did not serve it first: {flushes}")
+    per_call["verify plane"] = {k: v for k, v in counts().items() if v}
+    print(f"main: verify plane: consensus ({N_VALIDATORS + 1} votes), blocksync ({len(window)} lanes), light (2 steps) and "
+          f"evidence (lunatic attack) from four threads at once, then a three-curve flush of {len(mixed)}, through "
+          f"one scheduler over one supervisor over \"gpu\" == cpu; {int(requests)} requests in {dispatches} flushes "
+          f"{json.dumps(flushes)} (reasons {json.dumps({k: v for k, v in reasons.items() if v})}); "
+          f"supervisor {state}, {json.dumps(stats)}; round {round_s * 1e3:.1f} ms, three-curve flush "
+          f"{mixed_s * 1e3:.1f} ms host wall (100% synchronous CPU audit included)")
+
+
+class OneShotPlan(faults.FaultPlan):
+    """A fault plan that injects each fault on the dispatches named:
+    ``{"raise": {1, 2, 3}, "corrupt": {1}, "oom": {1}, "hang": {1}}``."""
+
+    def __init__(self, at: dict, hang_s: float = 30.0):
+        super().__init__(seed=SEED, hang_s=hang_s)
+        self.at = at
+
+    def _decide(self, device_idx=None):
+        with self._lock:
+            self.dispatches += 1
+            no = self.dispatches
+        pick = {k: no in v for k, v in self.at.items()}
+        return (no, pick.get("raise", False), pick.get("hang", False), pick.get("corrupt", False), 0.0, False,
+                pick.get("oom", False))
+
+
+_fault_names = iter(range(1, 1_000_000))
+
+
+def faulty_plane(at: dict, **kw):
+    """A supervisor over a fault plan in front of "gpu", on a fault
+    domain of its own (a quarantine there leaves the default topology,
+    and so the key store's entries, alone)."""
+    name = f"faulty-gpu-{next(_fault_names)}"
+    plan = faults.install(name=name, inner="gpu", plan=OneShotPlan(at, kw.pop("hang_s", 30.0)))
+    kw.setdefault("probe_base_ms", 50)
+    kw.setdefault("hedge_pct", 0)
+    kw.setdefault("audit_pct", 0)
+    sup = supervisor.BackendSupervisor(spec=name, topology=topology.DeviceTopology.single(), **kw)
+    return plan, sup
+
+
+def verify_plane_faults_path(vals, commit, per_call):
+    """Faults in front of the card's kernels, each phase with its own
+    supervisor: exceptions walk the breaker to broken and the canary
+    re-admits the card; a corrupted dispatch is caught by the synchronous
+    audit; an OOM halves the chunk cap and clean dispatches recover it; a
+    hang is killed by the watchdog and its zombie leaves."""
+    items = precommits(vals, commit)
+    items[17] = (items[17][0], items[17][1], flip(items[17][2], 5, 0x10))
+    want = flush(items, "cpu")
+    vals.verify_commit(CHAIN_ID, commit.block_id, commit.height, commit)  # the set resident
+    lines = []
+
+    # exceptions: degraded, degraded, broken; the canary on the card re-admits
+    plan, sup = faulty_plane({"raise": {1, 2, 3}}, breaker_threshold=3)
+    states = []
+    for _ in range(3):
+        check(sup.verify_items(items) == want[1], "a failed dispatch's verdicts != cpu")
+        states.append(sup.state())
+    check(states == ["degraded", "degraded", "broken"], f"the breaker walked {states}")
+    before = counts()
+    check(sup.probe_now() and sup.state() == supervisor.HEALTHY, "the canary did not re-admit the card")
+    canary = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(sum(canary.values()) > 0, "the canary launched no kernel")
+    before = counts()
+    check(sup.verify_items(items) == want[1], "the re-admitted card's verdicts != cpu")
+    after = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(sum(after.values()) > 0, "the flush after re-admission launched no kernel")
+    lines.append(f"exceptions: states {states}, trips {json.dumps(labels_of(sup.metrics.trips))}, failures "
+                 f"{sup.metrics.failures.value():.0f}, cpu verdicts {sup.metrics.cpu_verdicts.value():.0f}, canary "
+                 f"launches {json.dumps(canary)}, then {sup.state()} and the next flush launched {json.dumps(after)}")
+    sup.stop()
+
+    # corruption: one corrupted dispatch under the synchronous 100% audit
+    plan, sup = faulty_plane({"corrupt": {1}}, audit_pct=100, audit_sync=True)
+    check(sup.verify_items(items) == want[1], "the corrupted dispatch's released verdicts != cpu")
+    check(sup.metrics.audit_mismatches.value() == 1 and faults_total(sup.metrics.trips) >= 1
+          and sup.state() == supervisor.BROKEN, "the corruption was not caught by the audit")
+    lines.append(f"corruption: audit mismatches {sup.metrics.audit_mismatches.value():.0f}, trips "
+                 f"{json.dumps(labels_of(sup.metrics.trips))}, triage runs {sup.metrics.triage_runs.value():.0f}, "
+                 f"state {sup.state()}, released verdicts == cpu")
+    sup.stop()
+
+    # OOM: the chunk-cap gauge halves, then recovers after chunk_recover_n clean dispatches
+    plan, sup = faulty_plane({"oom": {1}}, chunk_recover_n=2)
+    gauges = [sup.metrics.chunk_cap.value()]
+    for _ in range(2):
+        check(sup.verify_items(items) == want[1], "an OOM phase flush != cpu")
+        gauges.append(sup.metrics.chunk_cap.value())
+    check(gauges == [8192, 4096, 8192] and sup.state() == supervisor.HEALTHY, f"the chunk cap went {gauges}")
+    lines.append(f"oom: chunk cap {gauges}, retries {json.dumps(labels_of(sup.metrics.retries))}, shrinks "
+                 f"{sup.metrics.chunk_shrinks.value():.0f}, recoveries {sup.metrics.chunk_recoveries.value():.0f}, "
+                 f"state {sup.state()}")
+    sup.stop()
+
+    # hang: the watchdog kills the dispatch; the zombie leaves at its cancel event
+    plan, sup = faulty_plane({"hang": {1}}, dispatch_timeout_ms=300)
+    base = sum(1 for t in threading.enumerate() if t.name == "supervised-dispatch")
+    before = counts()
+    t0 = time.perf_counter()
+    check(sup.verify_items(items) == want[1], "the hung dispatch's verdicts != cpu")
+    hung_s = time.perf_counter() - t0
+    wait_until(lambda: sum(1 for t in threading.enumerate() if t.name == "supervised-dispatch") <= base, 10,
+               "the zombie dispatch thread to leave")
+    zombie = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(sup.metrics.watchdog_kills.value() == 1 and sup.state() == supervisor.BROKEN, "the watchdog did not kill")
+    check(zombie == {}, f"the zombie launched kernels after the kill: {zombie}")
+    lines.append(f"hang: watchdog kills {sup.metrics.watchdog_kills.value():.0f}, state {sup.state()}, the "
+                 f"supervised call returned in {hung_s * 1e3:.1f} ms (300 ms watchdog + the CPU's verdicts), the "
+                 f"zombie left without launching")
+    sup.stop()
+    per_call["verify plane faults"] = {k: v for k, v in counts().items() if v}
+    for line in lines:
+        print(f"main: verify plane faults: {line}")
+
+
+def labels_of(counter) -> dict:
+    return {",".join(f"{k}={v}" for k, v in sorted(c._labels.items())): c.value()
+            for c in counter._series() if c._labels}
+
+
+
 PATHS = {  # path -> the kernels it must launch
     "commit": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree"),
     "indexed flush": ("ed25519_verify_resident",),
@@ -1650,6 +1953,9 @@ PATHS = {  # path -> the kernels it must launch
     "light": ("merkle_tree", "ed25519_key_tables", "ed25519_verify_resident"),
     "vote set": ("ed25519_verify_resident",),
     "evidence": ("merkle_tree", "ed25519_key_tables", "ed25519_verify_resident"),
+    "verify plane": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree", "secp256k1_verify",
+                     "sr25519_verify"),
+    "verify plane faults": ("ed25519_verify_resident", "ed25519_verify_compact"),
 }
 
 
@@ -1657,8 +1963,10 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes, w
     """Each path with the counts set to 0 just before it and read just
     after; returns (launches summed over the paths, per call, the sr
     window's timing). The call sites' paths run last, so that the key
-    store's uploads and hits on every earlier path stay as they were."""
+    store's uploads and hits on every earlier path stay as they were, and
+    the verify plane's after them."""
     items, want = window_items(vals, commit)
+    mixed = three_curve_items(vals, commit, svals, scommit, sr_lanes)
     s_items, s_want = secp_window_items(svals, scommit)
     r_items, r_want = sr_window_items(sr_lanes)
     sr_timing = {}
@@ -1677,6 +1985,8 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes, w
         "light": lambda pc: light_path(world, pc),
         "vote set": lambda pc: vote_set_path(vals, block_id, commit, world["keys"], pc),
         "evidence": lambda pc: evidence_path(world, pc),
+        "verify plane": lambda pc: verify_plane_path(world, commit, items, want, mixed, pc),
+        "verify plane faults": lambda pc: verify_plane_faults_path(vals, commit, pc),
     }
     total = {k: 0 for k in counts()}
     per_call = {}
@@ -2207,6 +2517,102 @@ def time_call_sites(w, commit, card: str) -> None:
               f"{N_VALIDATORS} precommits, in turns [{card}]")
 
 
+class NoopVerifier(cryptobatch.CPUBatchVerifier):
+    """Answers True for every lane without verifying: the verify plane's
+    own host cost, timed with nothing behind it."""
+
+    def verify(self):
+        n = self.count()
+        self._take()
+        return True, [True] * n
+
+
+def time_verify_plane(w, commit, window, card: str) -> None:
+    """Host wall medians, in turns: the 180-precommit preverify flush
+    through a scheduler over a supervisor over "gpu" (the node's 500 µs
+    deadline, audit off: the plane's own cost), on bare "gpu" and on
+    "cpu"; the same flush through the plane over a verifier that verifies
+    nothing, its own cost; and the four call sites' round from four
+    threads through that plane, and through a plane at every default a
+    node takes (5% background audit, 200% hedge, 8,192-lane budget),
+    against the same four one after another through the first plane and
+    on bare "gpu", counting the interpreter's full collections."""
+    sched, sup, flushes = build_plane(audit_pct=0, flush_us=500)
+    node_sup = supervisor.BackendSupervisor(spec="gpu")
+    node = scheduler.VerifyScheduler(spec="gpu", supervisor=node_sup)
+    node.start()
+    try:
+        items = precommits(w["vals"], commit)
+        t = wall_ms_turns({
+            "scheduler + supervisor": lambda: flush_tagged(items, sched, "consensus"),
+            "bare gpu": lambda: flush(items, "gpu"),
+            "cpu": lambda: flush(items, "cpu"),
+        }, runs=8, turns=4)
+        for label, (med, lo, hi) in t.items():
+            print(f"e2e: verify plane preverify flush {label:22s} p50 {med:.3f} ms host wall (min {lo:.3f}, "
+                  f"max {hi:.3f}), {N_VALIDATORS} precommits, in turns [{card}]")
+        cryptobatch.register_backend("plane-noop", NoopVerifier)
+        noop_sup = supervisor.BackendSupervisor(spec="plane-noop", audit_pct=0, hedge_pct=0)
+        noop = scheduler.VerifyScheduler(spec="plane-noop", supervisor=noop_sup, flush_us=500)
+        noop.start()
+        try:
+            t = wall_ms_turns({
+                "scheduler + supervisor": lambda: flush_tagged(items, noop, "consensus"),
+                "supervisor": lambda: noop_sup.verify_items(items),
+                "bare": lambda: flush(items, "plane-noop"),
+            }, runs=40, turns=4)
+        finally:
+            noop.stop()
+            noop_sup.stop()
+        for label, (med, lo, hi) in t.items():
+            print(f"e2e: verify plane's own cost, a verifier that verifies nothing, {label:22s} p50 {med:.3f} ms "
+                  f"host wall (min {lo:.3f}, max {hi:.3f}), {N_VALIDATORS} lanes, in turns [{card}]")
+        base = (sched.metrics.requests.value(), sched.n_dispatches)
+        full = {"n": 0, "ms": 0.0, "t0": 0.0}
+
+        def on_gc(phase, info):
+            if info["generation"] == 2 and phase == "start":
+                full["t0"] = time.perf_counter()
+            elif info["generation"] == 2:
+                full["n"] += 1
+                full["ms"] += (time.perf_counter() - full["t0"]) * 1e3
+
+        gc.callbacks.append(on_gc)
+        try:
+            t = wall_ms_turns({
+                "coalesced (four threads, one plane)": lambda: call_site_round(w, commit, window, sched, threaded=True),
+                "coalesced (four threads, node defaults)": lambda: call_site_round(w, commit, window, node,
+                                                                                   threaded=True),
+                "serial (one thread, one plane)": lambda: call_site_round(w, commit, window, sched, threaded=False),
+                "serial (one thread, bare gpu)": lambda: call_site_round(w, commit, window, "gpu", threaded=False),
+            }, runs=4, turns=4)
+        finally:
+            gc.callbacks.remove(on_gc)
+        requests, dispatches = sched.metrics.requests.value() - base[0], sched.n_dispatches - base[1]
+        for s, label in ((sup, "the timing plane"), (node_sup, "the plane at node defaults")):
+            check(s.state() == supervisor.HEALTHY and s.metrics.cpu_verdicts.value() == 0
+                  and s.metrics.audit_mismatches.value() == 0,
+                  f"{label} fell back: {s.state()}, {s.metrics.cpu_verdicts.value()} CPU-released batches, "
+                  f"{s.metrics.audit_mismatches.value()} audit mismatches")
+        for label, (med, lo, hi) in t.items():
+            print(f"e2e: verify plane round {label:40s} p50 {med:.3f} ms host wall (min {lo:.3f}, max {hi:.3f}), "
+                  f"consensus {N_VALIDATORS + 1} + blocksync {len(window)} + light 2 steps + evidence, in turns [{card}]")
+        print(f"e2e: verify plane round: the rounds through the plane made {int(requests)} requests in {dispatches} "
+              f"flushes; {sup.metrics.triage_runs.value():.0f} triage runs, "
+              f"{faults_total(sup.metrics.triage_offenders):.0f} bad signatures confirmed on the CPU [{card}]")
+        m = node_sup.metrics
+        print(f"e2e: verify plane round at node defaults: {int(node.metrics.requests.value())} requests in "
+              f"{node.n_dispatches} flushes; {m.audits.value():.0f} background audits (at most "
+              f"{supervisor.AUDIT_MAX_LANES} lanes each), {m.hedge_fires.value():.0f} hedges fired, "
+              f"{m.hedge_wins.with_labels(winner='cpu').value():.0f} won by the CPU, "
+              f"{m.cpu_verdicts.value():.0f} CPU-released batches [{card}]")
+        print(f"e2e: verify plane rounds above: {full['n']} full collections of the interpreter, "
+              f"{full['ms']:.1f} ms in them [{card}]")
+    finally:
+        for s in (sched, sup, node, node_sup):
+            s.stop()
+
+
 def time_secp_end_to_end(svals, sblock_id, scommit, window, card: str) -> None:
     """The secp256k1 set's verify_commit on the card and on "cpu" in turns,
     its host packing alone, and the secp window's signatures per second."""
@@ -2310,6 +2716,7 @@ def main() -> int:
     print(f"main: {N_VALIDATORS} sr25519 keys signed in {time.perf_counter() - t0:.1f} s (pure Python)")
     t0 = time.perf_counter()
     world = call_site_world(vals)
+    world["conflicting"] = conflicting_vote(vals, commit, world["keys"])
     print(f"main: the light chain and the attack (5 commits of {N_VALIDATORS}) signed in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2342,6 +2749,9 @@ def main() -> int:
     t0 = time.perf_counter()
     time_call_sites(world, commit, card)
     print(f"time: the call sites' timings took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    time_verify_plane(world, commit, window, card)
+    print(f"time: the verify plane's timings took {time.perf_counter() - t0:.1f} s")
     s_window, _ = secp_window_items(svals, scommit)
     t0 = time.perf_counter()
     time_secp_end_to_end(svals, sblock_id, scommit, s_window, card)

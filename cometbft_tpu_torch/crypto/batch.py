@@ -29,10 +29,15 @@ across heights and each commit ships R ‖ S ‖ h.
 ``"gpu"``: entry points run on the card unless the caller asks for
 ``"cpu"``, and raise when there is no card), a ``BackendSpec``, a
 callable that returns a BatchVerifier, such as ``lambda:
-GPUBatchVerifier(device="cpu")``, or a verify scheduler (``.submit`` and
-``.spec``), whose spec decides every route (reference :26-66, :413-494).
-A supervisor (``.verify_items`` and ``.spec``) raises NotImplementedError
-until the port has one.
+GPUBatchVerifier(device="cpu")``, a verify scheduler (``.submit`` and
+``.spec``, crypto/scheduler.py) or a backend supervisor
+(``.verify_items`` and ``.spec``, crypto/supervisor.py), whose spec
+decides every route (reference :26-66, :413-494). A factory has no name,
+so a scheduler or supervisor that should reach the gpu routes on the
+plain twins takes the name it is registered under
+(``register_backend("gpu-plain", lambda: GPUBatchVerifier(device="cpu"))``,
+then ``spec="gpu-plain"``), as the reference's tests register theirs; a
+name that is not registered raises, it never turns into ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -241,7 +246,8 @@ class ScheduledBatchVerifier(_Collecting):
 
 def new_batch_verifier(backend: Backend = None, subsystem: Optional[str] = None) -> BatchVerifier:
     """A verifier for ``backend``: a scheduler gets a
-    ScheduledBatchVerifier that submits under ``subsystem``; a callable is
+    ScheduledBatchVerifier that submits under ``subsystem``, a supervisor a
+    SupervisedBatchVerifier (crypto/supervisor.py); a callable is
     called; a name or a BackendSpec is looked up in the registry, and a
     GPUBatchVerifier built from a spec carries its ``max_chunk``.
     ``subsystem`` only tags a scheduler's requests (QoS class and
@@ -249,10 +255,11 @@ def new_batch_verifier(backend: Backend = None, subsystem: Optional[str] = None)
     if _is_scheduler(backend):
         return ScheduledBatchVerifier(backend, subsystem=subsystem)
     if _is_supervisor(backend):
-        raise NotImplementedError(
-            "a BackendSupervisor (.verify_items + .spec) needs the port's crypto/supervisor.py, "
-            "which is not written yet (ROADMAP, \"Scheduler, supervisor, device topology\")"
-        )
+        # a bare BackendSupervisor (no scheduler in front): dispatches
+        # still get the watchdog / breaker / audit treatment
+        from cometbft_tpu_torch.crypto.supervisor import SupervisedBatchVerifier
+
+        return SupervisedBatchVerifier(backend)
     if callable(backend):
         return backend()
     with _mtx:
@@ -280,6 +287,23 @@ def backend_device(backend: Backend = None):
     (``ValidatorSet.hash(device=None)`` is the host tree)."""
     bv = new_batch_verifier(unwrap_backend(backend))
     return bv.device if isinstance(bv, GPUBatchVerifier) else None
+
+
+def prepare_backend(backend: Backend = None) -> None:
+    """Make one verifier of ``backend`` now and, when it verifies on a
+    card (a GPUBatchVerifier on CUDA, or a wrapper whose ``inner`` is
+    one), build every kernel library (``crypto/cuda/build.build_all``).
+    A scheduler or supervisor calls this where it is made, so that "gpu"
+    without a card, or with a kernel that does not build, raises there:
+    before anything is queued, and before any verdict could be served
+    from the CPU in the card's place."""
+    bv = new_batch_verifier(unwrap_backend(backend))
+    while not isinstance(bv, GPUBatchVerifier) and getattr(bv, "inner", None) is not None:
+        bv = bv.inner
+    if isinstance(bv, GPUBatchVerifier) and bv.device.type == "cuda":
+        from cometbft_tpu_torch.crypto.cuda import build
+
+        build.build_all()
 
 
 def resident_commit_eligible(n_present: int, backend: Backend = None) -> bool:

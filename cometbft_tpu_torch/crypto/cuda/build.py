@@ -45,7 +45,14 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_lock = threading.Lock()
+class BuildError(RuntimeError):
+    """A kernel library could not be built: no ``nvcc``, or ``nvcc``
+    failed. Not a device fault: the supervisor and the scheduler raise it
+    to their callers and never serve verdicts from the CPU in its place."""
+
+
+_lock = threading.Lock()  # loading (load builds under it, then takes _build_lock)
+_build_lock = threading.Lock()  # building
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -57,7 +64,7 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+    raise BuildError("nvcc not found: the CUDA kernels cannot be built here")
 
 
 def lib_path(name: str) -> str:
@@ -82,8 +89,15 @@ def _stale(name: str) -> bool:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Build every stale library in ``names`` (default: all), one nvcc
     each, started together. Returns {name: seconds} for those built;
-    raises RuntimeError with the compiler's output if any build fails."""
-    names = list(SOURCES if names is None else names)
+    raises BuildError with the compiler's output if any build fails.
+    Safe from several threads at once (a supervisor's dispatch, canary
+    and audit threads, a caller's warm-up): one build runs at a time, and
+    a library another thread has just built is no longer stale."""
+    with _build_lock:
+        return _build_stale(list(SOURCES if names is None else names))
+
+
+def _build_stale(names: List[str]) -> Dict[str, float]:
     stale = [n for n in names if _stale(n)]
     if not stale:
         return {}
@@ -110,7 +124,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             os.replace(tmp, lib_path(name))
         time.sleep(0.05)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise BuildError("nvcc failed for " + "\n".join(failed))
     return seconds
 
 
@@ -130,8 +144,18 @@ def load(name: str, signatures: Dict[str, List[type]]) -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
+    """Raise when a C entry point's cudaGetLastError() is not 0; the
+    message carries the runtime's own text for the error ("out of
+    memory", "an illegal memory access was encountered"), which
+    ``crypto.supervisor.classify_device_error`` reads."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
+        try:
+            import torch
+
+            text = torch.cuda.cudart().cudaGetErrorString(rc)
+        except Exception:  # noqa: BLE001 - the code alone still raises
+            text = "unknown"
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc}: {text})")
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -571,8 +571,19 @@ def base_tables(device) -> torch.Tensor:
     tab = _BASE_TABLES.get(key)
     if tab is None:
         rows = torch.frombuffer(bytearray(neg_base_encoding()), dtype=torch.uint8).view(1, 32).to(device)
-        tab = _BASE_TABLES[key] = key_tables_kernel(rows)
+        tab = _BASE_TABLES[key] = _published(key_tables_kernel(rows))
     return tab
+
+
+def _published(tables: torch.Tensor) -> torch.Tensor:
+    """``tables`` once their build has finished on the stream that built
+    them: tables are shared (the key store's entries, B's tables) and read
+    from other threads, whose streams do not wait for this one (a
+    supervisor dispatch runs on its fault domain's stream,
+    topology.device_scope)."""
+    if tables.is_cuda:
+        torch.cuda.current_stream(tables.device).synchronize()
+    return tables
 
 
 def comb_digits(words: torch.Tensor) -> torch.Tensor:
@@ -979,10 +990,11 @@ def verify_keyed(
 def _build_resident(pub_keys: Sequence[bytes], device) -> keystore.KeyStoreEntry:
     """A key-store entry for a validator set: its keys as u8[n,32] rows
     copied to ``device`` once (reference :867), and their comb tables
-    built there once by ``key_tables_kernel``."""
+    built there once by ``key_tables_kernel``, finished before the entry
+    is published to other threads (``_published``)."""
     pk_arr, _ = keystore.key_rows(pub_keys)
     table = torch.from_numpy(pk_arr).to(device)
-    return keystore.new_entry(pub_keys, table, device, key_tables_kernel(table))
+    return keystore.new_entry(pub_keys, table, device, _published(key_tables_kernel(table)))
 
 
 def verify_valset_resident(

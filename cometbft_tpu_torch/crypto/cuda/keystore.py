@@ -22,9 +22,16 @@ made for (the reference keyed its compiled executables on shape alone and
 handed them placements they were not built for; ROADMAP C-ref 1). Every
 entry is stamped with the store generation (bumped on every upload and
 invalidation) and the topology generation it was built under
-(``_topo_generation``, 0 on one device until the port's topology lands);
-an entry from an older topology generation is dropped on sight and never
-verified against.
+(``_topo_generation``, the default topology's ``generation()``, which a
+quarantine or a re-admission bumps); an entry from an older topology
+generation is dropped on sight and never verified against.
+
+For the scheduler's and the supervisor's callers the store also answers
+``residency()`` (the decision plane's per-flush summary), ``covers``
+(the priced router's indexed-route probe), ``generation()``,
+``entry_for`` and ``register`` (a host-only entry, with no device table,
+for a verify service's generation handshake) as the reference's do
+(reference keystore.py:232-349).
 """
 
 from __future__ import annotations
@@ -59,11 +66,16 @@ class KeyStoreEntry:
     )
 
 
+_HOST = "host"  # the device key of a host-only entry (register)
+
+
 def _topo_generation() -> int:
-    """The device-topology generation. The single seam for staleness:
-    one device, no topology yet (ROADMAP, "Scheduler, supervisor, device
-    topology"), so always 0; tests patch it to bump."""
-    return 0
+    """The device-topology generation (crypto/cuda/topology.py): the
+    single seam for staleness. The default topology bumps it on every
+    quarantine and re-admission; tests patch it to bump."""
+    from cometbft_tpu_torch.crypto.cuda import topology
+
+    return topology.default_topology().generation()
 
 
 def _key_bytes(pk) -> bytes:
@@ -236,6 +248,83 @@ class DeviceKeyStore:
                 return e
         return None
 
+    def covers(self, pub_keys: Sequence, device=None) -> bool:
+        """True when ONE fresh entry with a device table (on ``device``,
+        or on any device for None) holds every key of ``pub_keys``: the
+        priced router's indexed-feasibility probe (reference :232).
+        Advisory: ``verify_batch_indexed`` looks again, so an eviction
+        in between just sends the flush down the keyed route. Host-only
+        entries (``register``) do not count."""
+        if not pub_keys:
+            return False
+        keys = [_key_bytes(pk) for pk in pub_keys]
+        topo_gen = _topo_generation()
+        want = None if device is None else _device_key(device)
+        with self._mtx:
+            entries = [
+                e for k, e in self._entries.items()
+                if k[1] != _HOST and e.topo_generation == topo_gen and (want is None or k[1] == want)
+            ]
+        return any(all(k in e.index for k in keys) for e in entries)
+
+    def generation(self) -> int:
+        """The store generation: the freshness token a verify service
+        stamps on its indexed-frame handshake (reference :252)."""
+        with self._mtx:
+            return self._gen
+
+    def entry_for(self, valset_id: bytes, generation: Optional[int] = None, device=None) -> Optional[KeyStoreEntry]:
+        """The entry for ``valset_id`` (on ``device``; the most recently
+        used one on any device for None), but only while the caller's
+        cached store ``generation`` matches the store's: a stale caller
+        is refused (``stale_drops`` counted) (reference :260)."""
+        vid = bytes(valset_id)
+        want = None if device is None else _device_key(device)
+        with self._mtx:
+            if generation is not None and generation != self._gen:
+                self._stats["stale_drops"] += 1
+                return None
+            key = next(
+                (k for k in reversed(self._entries) if k[0] == vid and (want is None or k[1] == want)),
+                None,
+            )
+            if key is None:
+                return None
+            return self._hit_locked(key, self._entries[key])
+
+    def register(self, valset_id: bytes, pub_keys) -> KeyStoreEntry:
+        """A host-only entry for ``valset_id``: the key rows and the
+        index, no device table, so the device routes never read it; a
+        new entry bumps the store generation (reference :281). A key
+        that is not 32 bytes gets a zero row and ``pk_ok`` False."""
+        key = (bytes(valset_id), _HOST)
+        with self._mtx:
+            e = self._entries.get(key)
+            if e is not None:
+                return self._hit_locked(key, e)
+            self._stats["misses"] += 1
+        e = new_entry(pub_keys, None, "cpu")
+        e.valset_id = key[0]
+        e.device = None
+        e.topo_generation = _topo_generation()
+        with self._mtx:
+            return self._insert_locked(key, e)
+
+    def residency(self) -> dict:
+        """The decision plane's per-flush summary: entry and key counts,
+        generation, hit rate (reference :334)."""
+        with self._mtx:
+            hits = self._stats["hits"]
+            lookups = hits + self._stats["misses"]
+            return {
+                "entries": len(self._entries),
+                "keys": sum(e.n for e in self._entries.values()),
+                "generation": self._gen,
+                "hit_rate": (hits / lookups) if lookups else None,
+                "indexed_dispatches": self._stats["indexed_dispatches"],
+                "thrash": self._stats["keystore_thrash"],
+            }
+
     def note_indexed(self, lanes: int) -> None:
         with self._mtx:
             self._stats["indexed_dispatches"] += 1
@@ -290,6 +379,11 @@ _default = DeviceKeyStore()
 
 def default_store() -> DeviceKeyStore:
     return _default
+
+
+def covers(pub_keys: Sequence, device=None) -> bool:
+    """``covers`` of the default store (reference :378)."""
+    return _default.covers(pub_keys, device)
 
 
 def verify_batch_indexed(pub_keys: Sequence, msgs: Sequence, sigs: Sequence, device) -> Optional[List[bool]]:

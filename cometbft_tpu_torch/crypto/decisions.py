@@ -1,0 +1,751 @@
+"""Decision plane — a routing-decision ledger with prediction-accuracy
+tracking (reference: cometbft_tpu/crypto/decisions.py; the port's own
+copy). Two parts wait for modules the port does not have yet: the
+time-series ring reads no telemetry hub (``crypto/telemetry.py``, ROADMAP
+A.4), so its duty cycle, p99 and burn stay None, and
+``calibration_seed_ms`` answers None until the port's calibration exists
+(ROADMAP A.4), as the reference's does when it has no table.
+
+The wire ledger makes dispatch *cost* queryable
+(``CostProfile.predict_ms``), but nothing recorded how good those
+predictions are or what each flush would have cost on the road not
+taken. This module closes that loop: every coalesced flush that reaches
+``VerifyScheduler._verify`` opens a :class:`RouteDecision` capturing
+
+* the decision **inputs** — flush size, pow2 bucket, healthy capacity
+  fraction, per-device breaker states, keystore residency, qos class
+  mix;
+* per-candidate **predicted cost** for the cpu / single / sharded
+  rungs (plus the indexed-keystore and device-hash sub-routes when the
+  wire ledger has a profile for them);
+* the route actually **taken** (exactly what the scheduler's
+  ``_note_route`` counted, so per-route decision counts reconcile with
+  ``queue_snapshot()['routes']`` to the unit) and the **final** route
+  after supervisor fallbacks / re-slices, attributed back to the
+  originating decision through a thread-local context (the supervisor
+  runs on the scheduler's flush thread — zero plumbing needed);
+* the measured **wall ms**, the **signed prediction error**, and the
+  **counterfactual regret** (predicted cost of the taken route minus
+  the best predicted candidate).
+
+Prediction ladder: the ledger's own per-(route, bucket) EWMA of
+measured decision walls once ≥ ``MIN_SELF_OBS`` observations (this is
+what converges MAPE, including for the cpu rung the wire ledger never
+profiles), then ``CostProfile.predict_ms``, then None (cold — no error
+recorded).
+
+The ledger keeps per-(route, bucket) EWMA error / MAPE profiles, a
+bounded ring of recent decision records (route_audit's top-K regret
+source), and a fixed-interval **time-series ring** sampling duty
+cycle, p99, error-budget burn, windowed prediction MAPE, and regret
+rate — sampled lazily on decision finish (the memory-plane
+clock-compare pattern; no background thread).
+
+An **anomaly watchdog** rides the same cadence: when the windowed MAPE
+or regret rate crosses a hysteretic threshold the router's world-model
+has gone stale, and the watchdog fires the incident-capture path
+(flight-recorder dump + profiler one-shot, wired by the node through
+``on_anomaly``) exactly once per episode, re-arming only after
+``REARM_CLEAN`` consecutive clean windows below half the trip level.
+
+Exported as the ``verify_route_*`` Prometheus family, surfaced as the
+``decisions`` TelemetryHub source in /debug/verify, rendered by
+``verify_top`` (decision table + sparklines) and ``tools/route_audit.py``.
+
+Hot-path contract (bench_micro's decisions section bounds it under
+1%): open/finish are dict builds, EWMA folds, and deque appends under
+one short lock; the off-edge (no default ledger installed) is a single
+module-attribute read.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+from cometbft_tpu_torch.libs.metrics import MICRO_BUCKETS, Registry
+
+SUBSYSTEM = "verify_route"
+
+# The three first-class routing rungs every decision prices.
+ROUTES = ("cpu", "single", "sharded")
+# Sub-routes priced opportunistically when the wire ledger has
+# seen them (they only exist on the device plane).
+SUB_ROUTES = ("indexed", "device_hash")
+
+DEFAULT_WINDOW = 64        # rolling decision window for MAPE / regret rate
+DEFAULT_MAPE_TRIP = 2.0    # windowed MAPE above this trips the watchdog
+REGRET_TRIP = 0.5          # windowed regret-event rate above this trips
+# a decision is a regret EVENT when the road not taken was predicted
+# ≥10% cheaper than the taken route's prediction
+REGRET_EVENT_FRAC = 0.10
+MIN_TRIP_OBS = 16          # min windowed observations before the watchdog arms
+REARM_CLEAN = 3            # consecutive clean windows to re-arm after a trip
+MIN_SELF_OBS = 3           # self-EWMA observations before it outranks wire
+RING_INTERVAL_S = 1.0      # time-series ring sample cadence
+RING_CAPACITY = 240        # ring depth (240 × 1 s = four minutes of history)
+_MAX_RECENT = 256          # recent decision records kept for route_audit
+
+
+def decision_ledger_default(config_value: bool = True) -> bool:
+    """Resolve the decision-ledger enable knob: an explicitly-set
+    CBFT_DECISION_LEDGER env var wins over [instrumentation]
+    decision_ledger."""
+    raw = os.environ.get("CBFT_DECISION_LEDGER")
+    if raw is not None:
+        return raw.strip().lower() not in ("0", "false", "no", "off", "")
+    return bool(config_value)
+
+
+def decision_window_default(config_value: Optional[int] = None) -> int:
+    """Resolve the rolling decision window: CBFT_DECISION_WINDOW env >
+    [instrumentation] decision_window > DEFAULT_WINDOW."""
+    raw = os.environ.get("CBFT_DECISION_WINDOW")
+    if raw is not None:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    if config_value is not None:
+        return max(1, int(config_value))
+    return DEFAULT_WINDOW
+
+
+def decision_mape_trip_default(
+    config_value: Optional[float] = None,
+) -> float:
+    """Resolve the watchdog MAPE trip level: CBFT_DECISION_MAPE_TRIP
+    env > [instrumentation] decision_mape_trip > DEFAULT_MAPE_TRIP."""
+    raw = os.environ.get("CBFT_DECISION_MAPE_TRIP")
+    if raw is not None:
+        try:
+            v = float(raw)
+            if v > 0.0:
+                return v
+        except ValueError:
+            pass
+    if config_value is not None:
+        v = float(config_value)
+        if v > 0.0:
+            return v
+    return DEFAULT_MAPE_TRIP
+
+
+def _pow2(n: int) -> int:
+    size = 1
+    n = max(1, int(n))
+    while size < n:
+        size *= 2
+    return size
+
+
+class Metrics:
+    """verify_route_* export (libs/metrics.py instruments), wired into
+    the node's Prometheus registry when [instrumentation] enables it."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry if registry is not None else Registry()
+        self.decisions = r.counter(
+            SUBSYSTEM, "decisions",
+            "Routing decisions recorded by the decision ledger, by "
+            "taken route (reconciles with the scheduler's route "
+            "counters to the unit).",
+        )
+        self.fallbacks = r.counter(
+            SUBSYSTEM, "fallbacks",
+            "Decisions whose final route diverged from the taken route "
+            "(supervisor sharded fallback / cpu re-route), by taken "
+            "route.",
+        )
+        self.error_seconds = r.histogram(
+            SUBSYSTEM, "error_seconds",
+            "Absolute routing-cost prediction error (|measured - "
+            "predicted| wall seconds) per undiverted decision, by "
+            "route.",
+            buckets=MICRO_BUCKETS,
+        )
+        self.mape = r.gauge(
+            SUBSYSTEM, "mape",
+            "Windowed mean absolute percentage error of routing cost "
+            "predictions over the last decision_window undiverted "
+            "decisions, relative to the predicted value (1.0 = "
+            "predictions off by 100% of their own claim).",
+        )
+        self.regret_ms = r.gauge(
+            SUBSYSTEM, "regret_ms",
+            "Windowed mean counterfactual regret (predicted cost of "
+            "the taken route minus the best predicted candidate, ms) "
+            "over the last decision_window decisions.",
+        )
+        self.anomaly = r.gauge(
+            SUBSYSTEM, "anomaly",
+            "Anomaly-watchdog state: 1 while the router's prediction "
+            "quality is tripped (stale world-model), 0 when armed.",
+        )
+        self.anomaly_trips = r.counter(
+            SUBSYSTEM, "anomaly_trips",
+            "Anomaly-watchdog trip episodes (each fires one incident "
+            "capture), by cause (mape / regret).",
+        )
+
+    @classmethod
+    def nop(cls) -> "Metrics":
+        return cls(None)
+
+
+class RouteDecision:
+    """One flush's routing decision — opened before the verify, taken
+    route noted by the scheduler's route ladder, fallback events noted
+    by the supervisor through the thread-local context, finished with
+    the measured wall."""
+
+    __slots__ = (
+        "seq", "t_open", "n", "bucket", "reason", "capacity",
+        "breakers", "keystore", "qos", "predicted", "feasible",
+        "router", "taken", "final", "events", "wall_ms", "error_ms",
+        "regret_ms",
+    )
+
+    def __init__(
+        self,
+        seq: int,
+        n: int,
+        reason: str,
+        capacity: Optional[float],
+        breakers: Optional[Dict[str, str]],
+        keystore: Optional[Dict[str, Any]],
+        qos: Optional[Dict[str, Any]],
+        predicted: Dict[str, Optional[float]],
+        feasible: Optional[Dict[str, bool]] = None,
+    ):
+        self.seq = seq
+        self.t_open = time.time()
+        self.n = n
+        self.bucket = _pow2(n)
+        self.reason = reason
+        self.capacity = capacity
+        self.breakers = breakers
+        self.keystore = keystore
+        self.qos = qos
+        self.predicted = predicted
+        # per-candidate feasibility at decision time (None = unknown,
+        # treat every candidate as takeable — the pre-live-router
+        # shape). A candidate infeasible when the decision was made
+        # (breaker BROKEN, non-resident keys, mesh below two devices)
+        # must never count as a "road not taken" in regret.
+        self.feasible = feasible
+        # which router produced the taken route: "priced" | "threshold"
+        # | "rolled-back" | "pinned" (None = pre-router record)
+        self.router: Optional[str] = None
+        self.taken: Optional[str] = None
+        self.final: Optional[str] = None
+        self.events: List[str] = []
+        self.wall_ms: Optional[float] = None
+        self.error_ms: Optional[float] = None
+        self.regret_ms: Optional[float] = None
+
+    @property
+    def diverted(self) -> bool:
+        return (
+            self.final is not None
+            and self.taken is not None
+            and self.final != self.taken
+        )
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "seq": self.seq,
+            "ts": self.t_open,
+            "n": self.n,
+            "bucket": self.bucket,
+            "reason": self.reason,
+            "capacity": self.capacity,
+            "breakers": self.breakers,
+            "keystore": self.keystore,
+            "qos": self.qos,
+            "predicted_ms": dict(self.predicted),
+            "feasible": (
+                dict(self.feasible) if self.feasible is not None else None
+            ),
+            "router": self.router,
+            "taken": self.taken,
+            "final": self.final or self.taken,
+            "diverted": self.diverted,
+            "events": list(self.events),
+            "wall_ms": self.wall_ms,
+            "error_ms": self.error_ms,
+            "regret_ms": self.regret_ms,
+        }
+
+
+class _RouteStat:
+    """EWMA accuracy profile for one (route, bucket) key."""
+
+    __slots__ = ("n", "cost_ewma_ms", "err_ewma_ms", "ape_ewma")
+
+    def __init__(self):
+        self.n = 0
+        self.cost_ewma_ms = 0.0
+        self.err_ewma_ms = 0.0
+        self.ape_ewma = 0.0
+
+
+class DecisionLedger:
+    """The decision plane: opens/finishes RouteDecision records, keeps
+    per-(route, bucket) EWMA error/MAPE profiles, the bounded
+    time-series ring, and the anomaly watchdog. Registers as the
+    "decisions" TelemetryHub source and exports verify_route_*."""
+
+    def __init__(
+        self,
+        window: int = DEFAULT_WINDOW,
+        mape_trip: float = DEFAULT_MAPE_TRIP,
+        regret_trip: float = REGRET_TRIP,
+        ring_interval_s: float = RING_INTERVAL_S,
+        cost_profile: Optional[Any] = None,
+        metrics: Optional[Metrics] = None,
+        on_anomaly: Optional[Callable[[str, float], None]] = None,
+        clock: Callable[[], float] = time.monotonic,
+        seed: Optional[Callable[[str, int], Optional[float]]] = None,
+    ):
+        self.window = max(1, int(window))
+        self.mape_trip = float(mape_trip)
+        self.regret_trip = float(regret_trip)
+        self.ring_interval_s = max(0.0, float(ring_interval_s))
+        self.metrics = metrics if metrics is not None else Metrics.nop()
+        self.on_anomaly = on_anomaly
+        self._cost_profile = cost_profile
+        # third prediction rung: a (route, bucket) -> ms callable (the
+        # calibration-sweep seed, calibration_seed_ms) consulted only
+        # when both the self EWMA and the wire profile are cold
+        self._seed = seed
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._stats: Dict[tuple, _RouteStat] = {}
+        self._counts: Dict[str, int] = {}
+        self._fallbacks: Dict[str, int] = {}
+        self._recent: deque = deque(maxlen=_MAX_RECENT)
+        # rolling windows behind MAPE / regret rate (undiverted only)
+        self._win_ape: deque = deque(maxlen=self.window)
+        self._win_regret_ms: deque = deque(maxlen=self.window)
+        self._win_regret_hit: deque = deque(maxlen=self.window)
+        # time-series ring + watchdog
+        self._ring: deque = deque(maxlen=RING_CAPACITY)
+        self._next_sample = self._clock()
+        self._tripped: Optional[str] = None   # cause while tripped
+        self._trips = 0
+        self._clean = 0
+
+    # --- prediction ladder ---------------------------------------------------
+
+    def predict_ms(self, route: str, bucket: int) -> Optional[float]:
+        """Predicted wall ms for ``bucket`` lanes on ``route`` — the
+        ledger's own measured-wall EWMA once warm (≥ MIN_SELF_OBS),
+        then the wire CostProfile, then the calibration seed, then
+        None. Never raises."""
+        bucket = _pow2(bucket)
+        with self._lock:
+            st = self._stats.get((route, bucket))
+            if st is not None and st.n >= MIN_SELF_OBS:
+                return st.cost_ewma_ms
+        cp = self._cost_profile
+        if cp is not None:
+            try:
+                pred = cp.predict_ms(route, bucket)
+            except Exception:  # noqa: BLE001 - predictions are advisory
+                pred = None
+            if pred is not None:
+                return pred
+        if self._seed is not None:
+            try:
+                return self._seed(route, bucket)
+            except Exception:  # noqa: BLE001 - seeding is advisory
+                return None
+        return None
+
+    def _candidates(self, bucket: int) -> Dict[str, Optional[float]]:
+        out: Dict[str, Optional[float]] = {}
+        for route in ROUTES:
+            out[route] = self.predict_ms(route, bucket)
+        for route in SUB_ROUTES:
+            pred = self.predict_ms(route, bucket)
+            if pred is not None:
+                out[route] = pred
+        return out
+
+    # --- record lifecycle ----------------------------------------------------
+
+    def open(
+        self,
+        n: int,
+        reason: str,
+        capacity: Optional[float] = None,
+        breakers: Optional[Dict[str, str]] = None,
+        keystore: Optional[Dict[str, Any]] = None,
+        qos: Optional[Dict[str, Any]] = None,
+        feasible: Optional[Dict[str, bool]] = None,
+    ) -> RouteDecision:
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+        bucket = _pow2(n)
+        return RouteDecision(
+            seq=seq, n=n, reason=reason, capacity=capacity,
+            breakers=breakers, keystore=keystore, qos=qos,
+            predicted=self._candidates(bucket),
+            feasible=feasible,
+        )
+
+    def finish(self, dec: RouteDecision, wall_s: float) -> None:
+        """Close a decision with the measured dispatch wall. Folds the
+        prediction error into the (taken, bucket) accuracy profile when
+        the dispatch was undiverted, computes counterfactual regret,
+        bumps metrics, and gives the ring sampler / watchdog their
+        lazy tick."""
+        wall_ms = max(0.0, wall_s) * 1e3
+        dec.wall_ms = wall_ms
+        taken = dec.taken or "single"
+        dec.taken = taken
+        if dec.final is None:
+            dec.final = taken
+        pred_taken = dec.predicted.get(taken)
+        # counterfactual regret is computed over candidates that were
+        # FEASIBLE at decision time (feasible=None = the pre-router
+        # shape, every priced candidate counts): a route that could
+        # never have been taken (breaker BROKEN, non-resident keys)
+        # must not inflate the regret rate
+        feas = dec.feasible
+        priced = [
+            v for c, v in dec.predicted.items()
+            if v is not None and (feas is None or feas.get(c, True))
+        ]
+        if pred_taken is not None and priced:
+            dec.regret_ms = max(0.0, pred_taken - min(priced))
+        ape = None
+        if not dec.diverted and pred_taken is not None:
+            dec.error_ms = wall_ms - pred_taken
+            # APE relative to the PREDICTION, not the measured wall: a
+            # world that got slower than the model claims (the stale-
+            # model regime the watchdog hunts) then reads unbounded,
+            # instead of saturating below 1.0
+            if pred_taken > 0.0:
+                ape = abs(dec.error_ms) / pred_taken
+        a = 2.0 / (self.window + 1.0)
+        with self._lock:
+            self._counts[taken] = self._counts.get(taken, 0) + 1
+            if dec.diverted:
+                self._fallbacks[taken] = self._fallbacks.get(taken, 0) + 1
+            key = (taken, dec.bucket)
+            st = self._stats.get(key)
+            if st is None:
+                st = self._stats[key] = _RouteStat()
+            if not dec.diverted:
+                # the wall only prices the taken route when the dispatch
+                # actually ran it end-to-end; a diverted wall includes
+                # the failed attempt and would poison the profile
+                st.cost_ewma_ms = (
+                    wall_ms if st.n == 0
+                    else st.cost_ewma_ms + a * (wall_ms - st.cost_ewma_ms)
+                )
+                if dec.error_ms is not None:
+                    err = abs(dec.error_ms)
+                    st.err_ewma_ms = (
+                        err if st.n == 0
+                        else st.err_ewma_ms + a * (err - st.err_ewma_ms)
+                    )
+                if ape is not None:
+                    st.ape_ewma = (
+                        ape if st.n == 0
+                        else st.ape_ewma + a * (ape - st.ape_ewma)
+                    )
+                st.n += 1
+            if ape is not None:
+                self._win_ape.append(ape)
+            if dec.regret_ms is not None:
+                self._win_regret_ms.append(dec.regret_ms)
+                hit = (
+                    pred_taken is not None and pred_taken > 0.0
+                    and dec.regret_ms > REGRET_EVENT_FRAC * pred_taken
+                )
+                self._win_regret_hit.append(1 if hit else 0)
+            self._recent.append(dec.as_dict())
+        self.metrics.decisions.with_labels(route=taken).add()
+        if dec.diverted:
+            self.metrics.fallbacks.with_labels(route=taken).add()
+        if dec.error_ms is not None:
+            self.metrics.error_seconds.with_labels(route=taken).observe(
+                abs(dec.error_ms) / 1e3
+            )
+        self._tick()
+
+    # --- supervisor attribution ----------------------------------------------
+
+    def note_event(self, dec: RouteDecision, event: str,
+                   final: Optional[str] = None) -> None:
+        """Attribute a supervisor-side event (sharded_fallback,
+        reslice, cpu_routed, ...) back to the originating decision;
+        ``final`` overrides the record's final route."""
+        dec.events.append(event)
+        if final is not None:
+            dec.final = final
+
+    # --- windowed quality ----------------------------------------------------
+
+    def windowed(self) -> Dict[str, Optional[float]]:
+        """Public windowed-quality snapshot (mape / regret_ms /
+        regret_rate / observations) — the live router's rollback guard
+        polls this per flush."""
+        return self._windowed()
+
+    def _windowed(self) -> Dict[str, Optional[float]]:
+        # caller holds no lock; reads are over deque snapshots
+        with self._lock:
+            apes = list(self._win_ape)
+            regrets = list(self._win_regret_ms)
+            hits = list(self._win_regret_hit)
+        mape = sum(apes) / len(apes) if apes else None
+        regret = sum(regrets) / len(regrets) if regrets else None
+        rate = sum(hits) / len(hits) if hits else None
+        return {
+            "mape": mape,
+            "regret_ms": regret,
+            "regret_rate": rate,
+            "observations": len(apes),
+        }
+
+    # --- ring + watchdog (lazy, on finish) -----------------------------------
+
+    def _tick(self) -> None:
+        now = self._clock()
+        with self._lock:
+            if now < self._next_sample:
+                return
+            self._next_sample = now + self.ring_interval_s
+        self.sample(now)
+
+    def sample(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """Take one time-series ring sample (duty cycle / p99 / burn
+        from the process telemetry hub, windowed MAPE / regret rate
+        from the ledger) and run the watchdog over it."""
+        if now is None:
+            now = self._clock()
+        # no telemetry hub in the port yet: duty cycle, p99 and burn
+        # are not observed
+        duty = p99 = burn = None
+        win = self._windowed()
+        sample = {
+            "ts": time.time(),
+            "duty_cycle": duty,
+            "p99_ms": p99,
+            "burn_rate": burn,
+            "mape": win["mape"],
+            "regret_rate": win["regret_rate"],
+            "regret_ms": win["regret_ms"],
+        }
+        with self._lock:
+            self._ring.append(sample)
+        if win["mape"] is not None:
+            self.metrics.mape.set(win["mape"])
+        if win["regret_ms"] is not None:
+            self.metrics.regret_ms.set(win["regret_ms"])
+        self._watchdog(win)
+        return sample
+
+    def _watchdog(self, win: Dict[str, Optional[float]]) -> None:
+        """Hysteretic staleness detector: trip when windowed MAPE >
+        mape_trip or regret rate > regret_trip (with ≥ MIN_TRIP_OBS
+        windowed observations); once tripped, fire on_anomaly exactly
+        once, then re-arm only after REARM_CLEAN consecutive samples
+        below HALF the trip levels."""
+        if win["observations"] < MIN_TRIP_OBS:
+            return
+        mape = win["mape"] or 0.0
+        rate = win["regret_rate"] or 0.0
+        hot_mape = mape > self.mape_trip
+        hot_rate = rate > self.regret_trip
+        fire = None
+        with self._lock:
+            if self._tripped is None:
+                if hot_mape or hot_rate:
+                    cause = "mape" if hot_mape else "regret"
+                    self._tripped = cause
+                    self._trips += 1
+                    self._clean = 0
+                    fire = (cause, mape if hot_mape else rate)
+            else:
+                clean = (
+                    mape < self.mape_trip / 2.0
+                    and rate < self.regret_trip / 2.0
+                )
+                if clean:
+                    self._clean += 1
+                    if self._clean >= REARM_CLEAN:
+                        self._tripped = None
+                        self._clean = 0
+                else:
+                    self._clean = 0
+            tripped = self._tripped
+        self.metrics.anomaly.set(1.0 if tripped else 0.0)
+        if fire is not None:
+            cause, value = fire
+            self.metrics.anomaly_trips.with_labels(cause=cause).add()
+            cb = self.on_anomaly
+            if cb is not None:
+                try:
+                    cb(cause, value)
+                except Exception:  # noqa: BLE001 - capture is best-effort
+                    pass
+
+    # --- queries -------------------------------------------------------------
+
+    def counts(self) -> Dict[str, int]:
+        """Per-taken-route decision counts — the reconciliation key
+        against queue_snapshot()['routes']."""
+        with self._lock:
+            return dict(self._counts)
+
+    def watchdog_state(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "tripped": self._tripped,
+                "trips": self._trips,
+                "clean_streak": self._clean,
+                "mape_trip": self.mape_trip,
+                "regret_trip": self.regret_trip,
+            }
+
+    # --- snapshot (TelemetryHub source "decisions") --------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The /debug/verify decisions section: per-route counts,
+        per-(route, bucket) accuracy profiles, windowed quality, the
+        recent-decision tail, the time-series ring, and watchdog
+        state."""
+        with self._lock:
+            profiles = [
+                {
+                    "route": k[0],
+                    "bucket": k[1],
+                    "n": st.n,
+                    "cost_ewma_ms": st.cost_ewma_ms,
+                    "err_ewma_ms": st.err_ewma_ms,
+                    "mape": st.ape_ewma,
+                }
+                for k, st in sorted(self._stats.items())
+            ]
+            counts = dict(self._counts)
+            fallbacks = dict(self._fallbacks)
+            recent = list(self._recent)
+            ring = list(self._ring)
+        win = self._windowed()
+        return {
+            "window": self.window,
+            "counts": counts,
+            "fallbacks": fallbacks,
+            "profiles": profiles,
+            "windowed": win,
+            "watchdog": self.watchdog_state(),
+            "recent": recent[-64:],
+            "ring": ring,
+        }
+
+
+# --- thread-local decision context -------------------------------------------
+# The scheduler opens a decision around each flush and parks it here;
+# the supervisor (running on the same flush thread) attributes fallback
+# / re-slice events to it without any plumbing. Mirrors tracelib.use.
+
+_tls = threading.local()
+
+
+class _Use:
+    __slots__ = ("_dec", "_prev")
+
+    def __init__(self, dec: Optional[RouteDecision]):
+        self._dec = dec
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "decision", None)
+        _tls.decision = self._dec
+        return self._dec
+
+    def __exit__(self, *exc):
+        _tls.decision = self._prev
+        return False
+
+
+def use(dec: Optional[RouteDecision]) -> _Use:
+    """Context manager parking ``dec`` as the flush thread's current
+    decision (None = explicitly no decision)."""
+    return _Use(dec)
+
+
+def current() -> Optional[RouteDecision]:
+    return getattr(_tls, "decision", None)
+
+
+def note_taken(route: str) -> None:
+    """Record the taken route on the current decision (no-op without
+    one). Called by the scheduler right where _note_route counts, so
+    ledger counts and queue_snapshot routes reconcile by construction."""
+    dec = current()
+    if dec is not None:
+        dec.taken = route
+
+
+def note_router(router: str) -> None:
+    """Tag the current decision with the router that produced it
+    ("priced" | "threshold" | "rolled-back" | "pinned"); no-op without
+    a decision. route_audit --assert-live judges only "priced"-tagged
+    records against the argmin."""
+    dec = current()
+    if dec is not None:
+        dec.router = router
+
+
+def note_event(event: str, final: Optional[str] = None) -> None:
+    """Attribute a supervisor-side event to the current decision
+    (no-op without one)."""
+    dec = current()
+    if dec is not None:
+        dec.events.append(event)
+        if final is not None:
+            dec.final = final
+
+
+def calibration_seed_ms(route: str, bucket: int) -> Optional[float]:
+    """The third prediction rung: per-route cost seeded from a persisted
+    calibration sweep (reference :728-739). The port has no calibration
+    table yet (ROADMAP A.4), so every route answers None — what the
+    reference answers when its table is missing."""
+    return None
+
+
+# --- process default ---------------------------------------------------------
+# Installed by node start (gated by [instrumentation] decision_ledger /
+# CBFT_DECISION_LEDGER); the scheduler consults it with one attribute
+# read, same pattern as wire.default_ledger.
+
+_default_mtx = threading.Lock()
+_default_ledger: Optional[DecisionLedger] = None
+
+
+def default_ledger() -> Optional[DecisionLedger]:
+    """The process-default decision ledger, or None (plane off)."""
+    return _default_ledger
+
+
+def set_default_ledger(
+    ledger: Optional[DecisionLedger],
+) -> Optional[DecisionLedger]:
+    """Install ``ledger`` as the process default; returns the previous
+    default so callers can restore it (tests, benches)."""
+    global _default_ledger
+    with _default_mtx:
+        prev = _default_ledger
+        _default_ledger = ledger
+        return prev

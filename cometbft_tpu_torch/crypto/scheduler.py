@@ -1,0 +1,1592 @@
+"""Node-wide verification scheduler — cross-subsystem micro-batch
+coalescing with deadline flush, future-based results, and QoS
+admission control (reference: cometbft_tpu/crypto/scheduler.py; the
+port's own copy).
+
+What the port leaves out: the verify service's row path (``submit_rows``
+:825, ``_verify_rows`` :1359 and the row requests' handling; ROADMAP
+A.8), and the two hooks into modules of ROADMAP A.4, the memory plane's
+poll on every flush (:1228-1238) and the wire ledger's demux note
+(:1353-1357). The spec defaults to the port's default backend,
+``"gpu"`` (the reference's to ``CMT_CRYPTO_BACKEND`` or ``"cpu"``), and
+a scheduler prepares its spec at construction (``batch.prepare_backend``:
+one verifier, and every kernel library built when it verifies on a
+card), so a ``"gpu"`` scheduler raises there when there is no card or a
+kernel does not build. A ``build.BuildError`` met later fails the
+flush's futures with it and is never answered from the CPU. The sharded
+route is never taken (``mesh.sharded_available`` is False until
+multi-GPU, ROADMAP A.7); the indexed route is feasible for the priced
+router when the spec verifies on a device, the supervisor has one fault
+domain and one fresh key-store entry there covers every key of the
+flush.
+
+A *single* dispatch is fast (chunked, resident valsets), but without
+a scheduler every call site — consensus vote-drain
+preverify, blocksync commit checks, the light verifier, evidence — still
+built its own BatchVerifier and blocked on its own dispatch, so
+concurrent sub-floor batches (a 150-sig commit, a dozen drained votes)
+either under-filled the 1024-lane dispatch or were routed to CPU
+entirely. This is the dynamic-batching pattern from inference serving
+(and the FPGA ECDSA engine's shared request queue feeding one wide
+pipeline — PAPERS.md) applied to the node: one background service
+accepts ``submit(items) -> VerifyFuture`` from any thread, coalesces
+every concurrently pending request into ONE padded lane-aligned
+dispatch, and flushes on whichever fires first:
+
+  * lane budget reached (``[crypto] max_chunk`` — the dispatch layer's
+    chunk cap, so a full coalesced batch is exactly one device chunk);
+  * deadline expiry (``[crypto] flush_us`` / env ``CBFT_VERIFY_FLUSH_US``,
+    default 500 µs — bounds the latency a lone request can pay for the
+    chance of sharing a dispatch);
+  * explicit ``flush()`` (drain paths, tests).
+
+Per-request verdict slices are demultiplexed from the batch mask, so one
+caller's bad signature never fails another's request, and device-vs-CPU
+routing (the calibrated floor in crypto/batch.py) is decided on the
+COALESCED size by construction: the dispatch builds one backend verifier
+over all coalesced items, whose per-curve thresholds see the total
+count. Small concurrent batches now clear the floor together.
+
+QoS admission control (crypto/qos.py) replaces the single FIFO with
+per-priority-class lanes (``consensus`` > ``evidence`` > ``blocksync``
+> ``light`` > ``mempool``; class resolved from the request's
+``subsystem`` origin tag, configured via ``[crypto] qos_classes`` /
+env ``CBFT_QOS_CLASSES``, ``off`` = the legacy single FIFO). Flush
+assembly serves the top class strictly first, then shares the
+remaining lane budget across the lower classes by weighted deficit
+round-robin — low classes make progress but can never displace votes.
+Each class carries its own queue bound and overload policy: block
+(bounded backpressure — consensus/evidence), shed (wait out a short
+deadline, then verify inline on the submitter's CPU — blocksync/
+light), or drop (complete immediately with a ``rejected`` verdict —
+mempool; callers re-verify on CPU). Per-tenant token buckets
+(``[crypto] qos_tenant_rate``) stop one tenant from monopolizing a
+class, and a brownout controller — fed by the telemetry hub's SLO burn
+watcher and the supervisor's aggregate state — progressively disables
+the sheddable classes (mempool first) under overload and re-admits
+them hysteretically. Every shed/drop/backpressure-CPU verdict is
+RED-metered under its tenant tag so overload shows up in
+/debug/verify instead of hiding from it.
+
+Integration: the scheduler is accepted anywhere a backend name /
+BackendSpec travels (crypto/batch.py ``Backend``) — ``new_batch_verifier``
+returns a thin adapter whose ``verify()`` submits to the scheduler, so
+every existing call site coalesces the moment the node threads its
+scheduler instead of its bare spec. ``new_batch_verifier("cpu"|"gpu")``
+keeps working standalone for tests and embedders.
+
+If the device plane dies mid-flight (a dispatch raises), the affected
+flush falls back to the CPU ground-truth verifier so no future is left
+hanging and verdicts stay bit-identical to serial verification; the
+fallback is counted and logged with the batch size and flush reason.
+When the node threads a BackendSupervisor (crypto/supervisor.py), every
+dispatch instead runs through it — watchdog, circuit breaker, and
+corruption audit included — and an open breaker short-circuits the
+deadline wait (there is nothing to coalesce FOR when every dispatch is
+CPU-routed anyway, so pending requests flush immediately).
+
+``submit()`` is bounded: past the class's queue bound (default
+``[crypto] max_queue`` pending signatures, env ``CBFT_MAX_QUEUE``) a
+block-policy submit blocks with a deadline instead of growing without
+limit while the device plane stalls; a submitter that exhausts the
+deadline gets its items verified inline on the CPU ground truth, so
+memory stays bounded and no future is ever lost. ``stop()`` drains:
+queued requests are dispatched (not abandoned) before the worker exits —
+a submit that races stop past the final drain sweep is dispatched
+inline by the submitting thread itself — and if the worker cannot be
+joined (wedged inside a dispatch), the pending futures are FAILED
+loudly rather than leaving callers blocked.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+from cometbft_tpu_torch.crypto import (
+    PubKey,
+    decisions as declib,
+    qos as qoslib,
+)
+from cometbft_tpu_torch.crypto.batch import (
+    Backend,
+    BackendSpec,
+    CPUBatchVerifier,
+    backend_device,
+    default_backend,
+    new_batch_verifier,
+    prepare_backend,
+)
+from cometbft_tpu_torch.crypto.cuda.build import BuildError
+from cometbft_tpu_torch.libs import trace as tracelib
+from cometbft_tpu_torch.libs.log import Logger
+from cometbft_tpu_torch.libs.metrics import MICRO_BUCKETS, Registry
+from cometbft_tpu_torch.libs.service import BaseService
+
+DEFAULT_FLUSH_US = 500
+DEFAULT_MAX_QUEUE = 65_536
+DEFAULT_SUBMIT_TIMEOUT_MS = 5_000
+DEFAULT_SHARD_MIN_BATCH = 4096
+SUBSYSTEM = "verify_scheduler"
+
+# live router modes ([crypto] router / CBFT_ROUTER): "priced" takes the
+# cheapest decision-ledger-priced feasible candidate per flush,
+# "threshold" keeps the legacy comparison ladder (size crossover +
+# shard_min_batch + pins) as the only router
+ROUTER_PRICED = "priced"
+ROUTER_THRESHOLD = "threshold"
+ROUTERS = (ROUTER_THRESHOLD, ROUTER_PRICED)
+# consecutive clean guard checks before a rolled-back priced router is
+# re-admitted — the qos brownout re-admission shape applied to routing
+ROUTER_REARM_CLEAN = 3
+
+# the single lane the scheduler degrades to when QoS is off
+_FIFO = "fifo"
+_FLUSH_REASONS = ("size", "deadline", "explicit", "drain", "broken")
+
+Item = Tuple[PubKey, bytes, bytes]
+
+
+def flush_us_default(config_flush_us: Optional[int] = None) -> int:
+    """Deadline resolution, same precedence shape as the routing floor
+    (crypto/batch.py ed25519_routing_floor): env operator override >
+    configured [crypto] flush_us > built-in 500 µs."""
+    raw = os.environ.get("CBFT_VERIFY_FLUSH_US")
+    if raw is not None:
+        return int(raw)
+    if config_flush_us is not None:
+        return config_flush_us
+    return DEFAULT_FLUSH_US
+
+
+def max_queue_default(config_max_queue: Optional[int] = None) -> int:
+    """Pending-signature bound on the submission queue, same precedence
+    shape: CBFT_MAX_QUEUE env > [crypto] max_queue > built-in 65536."""
+    raw = os.environ.get("CBFT_MAX_QUEUE")
+    if raw is not None:
+        return int(raw)
+    if config_max_queue is not None:
+        return config_max_queue
+    return DEFAULT_MAX_QUEUE
+
+
+def submit_timeout_default(config_timeout_ms: Optional[int] = None) -> int:
+    """Backpressure deadline (ms) a block-policy submit waits for queue
+    room: CBFT_SUBMIT_TIMEOUT_MS env > configured > built-in 5000."""
+    raw = os.environ.get("CBFT_SUBMIT_TIMEOUT_MS")
+    if raw is not None:
+        return int(raw)
+    if config_timeout_ms is not None:
+        return int(config_timeout_ms)
+    return DEFAULT_SUBMIT_TIMEOUT_MS
+
+
+def router_default(config_value: Optional[str] = None) -> str:
+    """Resolve the live-router mode: CBFT_ROUTER env > [crypto] router
+    > "priced" (the priced argmin is the steady-state router; it falls
+    back to thresholds on its own when cold or rolled back, so the
+    default is safe even without a decision ledger). An unrecognized
+    value degrades to "threshold" — never raises on the flush path."""
+    raw = os.environ.get("CBFT_ROUTER")
+    if raw is not None:
+        raw = raw.strip().lower()
+        if raw in ROUTERS:
+            return raw
+        return ROUTER_THRESHOLD
+    if config_value:
+        value = str(config_value).strip().lower()
+        if value in ROUTERS:
+            return value
+        return ROUTER_THRESHOLD
+    return ROUTER_PRICED
+
+
+def shard_min_batch_default(config_value: Optional[int] = None) -> int:
+    """Coalesced-flush size at which the scheduler routes to the sharded
+    mesh instead of one chip. Precedence: CBFT_SHARD_MIN_BATCH env >
+    [crypto] shard_min_batch (0 = auto) > built-in 4096. The reference
+    reads a crossover learned by its calibration sweep between the last
+    two; the port has no calibration yet (ROADMAP A.4)."""
+    raw = os.environ.get("CBFT_SHARD_MIN_BATCH")
+    if raw is not None:
+        return int(raw)
+    if config_value:  # 0 = auto
+        return int(config_value)
+    return DEFAULT_SHARD_MIN_BATCH
+
+
+class Metrics:
+    """Scheduler observability (libs/metrics.py instruments), wired into
+    the node's Prometheus registry when [instrumentation] enables it."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry if registry is not None else Registry()
+        self.lane_fill_ratio = r.histogram(
+            SUBSYSTEM, "lane_fill_ratio",
+            "Coalesced dispatch size as a fraction of the lane budget.",
+            buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+        )
+        self.flushes = r.counter(
+            SUBSYSTEM, "flushes",
+            "Coalesced dispatches, by flush trigger (size|deadline|"
+            "explicit|drain|broken).",
+        )
+        self.queue_depth = r.gauge(
+            SUBSYSTEM, "queue_depth",
+            "Requests currently waiting for the next coalesced dispatch.",
+        )
+        self.pending_lanes = r.gauge(
+            SUBSYSTEM, "pending_lanes",
+            "Signatures currently waiting for the next coalesced dispatch.",
+        )
+        self.request_wait_seconds = r.histogram(
+            SUBSYSTEM, "request_wait_seconds",
+            "Per-request wait from submit to dispatch start.",
+            buckets=MICRO_BUCKETS,
+        )
+        self.requests = r.counter(
+            SUBSYSTEM, "requests", "Requests submitted."
+        )
+        self.signatures = r.counter(
+            SUBSYSTEM, "signatures", "Signatures submitted."
+        )
+        self.cpu_fallbacks = r.counter(
+            SUBSYSTEM, "cpu_fallbacks",
+            "Dispatches that fell back to the CPU ground-truth verifier "
+            "after the configured backend raised mid-flight.",
+        )
+        self.backpressure_waits = r.counter(
+            SUBSYSTEM, "backpressure_waits",
+            "submit() calls that blocked because their lane was at its "
+            "queue bound.",
+        )
+        self.backpressure_timeouts = r.counter(
+            SUBSYSTEM, "backpressure_timeouts",
+            "Backpressured submit() calls that exhausted their deadline "
+            "and verified inline on CPU instead of enqueueing.",
+        )
+
+    @classmethod
+    def nop(cls) -> "Metrics":
+        return cls(None)
+
+
+class VerifyFuture:
+    """Result handle for one submitted request. ``result()`` blocks until
+    the request's flush lands and returns ``(all_ok, per_item_mask)`` —
+    the same contract as BatchVerifier.verify(), sliced to this request
+    only (another caller's bad signature is invisible here).
+
+    ``rejected`` distinguishes a QoS drop (the mempool class's
+    best-effort overload policy completed the future with an all-False
+    mask WITHOUT verifying) from a genuine bad-signature verdict:
+    callers that see it re-verify on their own CPU."""
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self._mtx = threading.Lock()
+        self._result: Optional[Tuple[bool, List[bool]]] = None
+        self._exc: Optional[BaseException] = None
+        self.rejected = False
+        self._callbacks: List = []
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def add_done_callback(self, fn) -> None:
+        """Run ``fn(self)`` once the future completes — immediately if
+        it already has. The verify service fans verdicts back out per
+        connection this way, so the flush worker hands each response to
+        a writer thread instead of blocking on N client sockets."""
+        with self._mtx:
+            if not self._ev.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def _pop_callbacks(self) -> List:
+        cbs = self._callbacks
+        self._callbacks = []
+        return cbs
+
+    def result(
+        self, timeout: Optional[float] = None
+    ) -> Tuple[bool, List[bool]]:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("verification future not ready")
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+    # -- completion (scheduler-side) ---------------------------------------
+    # First completion wins: stop() may fail a future whose wedged worker
+    # later limps home — the zombie's late verdict must not overwrite
+    # what the caller already observed.
+
+    def _set(self, result: Tuple[bool, List[bool]]) -> None:
+        with self._mtx:
+            if self._ev.is_set():
+                return
+            self._result = result
+            self._ev.set()
+            cbs = self._pop_callbacks()
+        for fn in cbs:  # outside the lock: callbacks may inspect result()
+            fn(self)
+
+    def _set_exception(self, exc: BaseException) -> None:
+        with self._mtx:
+            if self._ev.is_set():
+                return
+            self._exc = exc
+            self._ev.set()
+            cbs = self._pop_callbacks()
+        for fn in cbs:
+            fn(self)
+
+
+class _Request:
+    __slots__ = ("items", "future", "t_submit", "span", "subsystem",
+                 "height", "qclass")
+
+    def __init__(
+        self,
+        items: List[Item],
+        span=tracelib.NOOP_SPAN,
+        subsystem: Optional[str] = None,
+        height: Optional[int] = None,
+        qclass: str = _FIFO,
+    ):
+        self.items = items
+        self.future = VerifyFuture()
+        self.t_submit = time.monotonic()
+        # request-level trace span (libs/trace.py); the shared no-op when
+        # tracing is off or the request wasn't sampled
+        self.span = span
+        # who asked, for which block — carried through the coalesced
+        # dispatch so supervisor triage can attribute a bad signature to
+        # the request that submitted it
+        self.subsystem = subsystem
+        self.height = height
+        # the priority class the subsystem tag resolved to
+        self.qclass = qclass
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.items)
+
+
+class _Lane:
+    """One priority class's admission queue and its running counters
+    (mirrored into queue_snapshot so /debug/verify needs no metric
+    series iteration)."""
+
+    __slots__ = ("spec", "bound", "reqs", "pending_sigs", "deficit",
+                 "admits", "sheds", "drops", "quota_rejections",
+                 "g_depth", "g_pending")
+
+    def __init__(self, spec: qoslib.ClassSpec, bound: int, qos_metrics):
+        self.spec = spec
+        self.bound = bound
+        self.reqs: Deque[_Request] = collections.deque()
+        self.pending_sigs = 0
+        # weighted-deficit round-robin credit, carried across flushes
+        # while the lane stays backlogged
+        self.deficit = 0
+        self.admits = 0
+        self.sheds = 0
+        self.drops = 0
+        self.quota_rejections = 0
+        self.g_depth = qos_metrics.depth.with_labels(qclass=spec.name)
+        self.g_pending = qos_metrics.pending_sigs.with_labels(
+            qclass=spec.name
+        )
+
+
+class VerifyScheduler(BaseService):
+    """Per-node background coalescer over the batch-verification boundary.
+
+    Threads carrying verification work (consensus receive loop, blocksync
+    pool routine, light client / statesync, evidence, RPC) call
+    ``submit`` and block on the returned future only when they need the
+    verdict — so requests submitted while another caller's dispatch is
+    being assembled ride the same device round-trip.
+
+    The scheduler is duck-typed as a crypto Backend: it exposes ``spec``
+    (the node's BackendSpec) and ``submit``, which crypto/batch.py
+    unwraps. When the service is not running (standalone use, or after
+    stop), ``submit`` degrades to an inline synchronous dispatch — the
+    future is completed before it is returned, so no caller can hang on
+    a dead service.
+    """
+
+    def __init__(
+        self,
+        spec: Backend = None,
+        flush_us: Optional[int] = None,
+        lane_budget: Optional[int] = None,
+        metrics: Optional[Metrics] = None,
+        logger: Optional[Logger] = None,
+        supervisor=None,
+        max_queue: Optional[int] = None,
+        join_timeout_s: float = 30.0,
+        tracer: Optional[tracelib.Tracer] = None,
+        telemetry=None,
+        shard_min_batch: Optional[int] = None,
+        qos: Optional[str] = None,
+        qos_metrics: Optional[qoslib.QoSMetrics] = None,
+        tenant_rate: Optional[int] = None,
+        submit_timeout_ms: Optional[int] = None,
+        router: Optional[str] = None,
+    ):
+        super().__init__("VerifyScheduler", logger)
+        if isinstance(spec, BackendSpec):
+            self.spec = spec
+        else:
+            self.spec = BackendSpec(name=spec or default_backend())
+        if self.spec.name != "cpu":
+            # "gpu" without a card, or with a kernel that does not build,
+            # raises here, before anything is queued
+            prepare_backend(self.spec)
+        self._flush_s = flush_us_default(flush_us) / 1e6
+        if lane_budget is None:
+            lane_budget = self.spec.max_chunk
+        if lane_budget is None:
+            raw = os.environ.get("CBFT_TPU_MAX_CHUNK")
+            lane_budget = int(raw) if raw else 8192
+        self._lane_budget = max(1, int(lane_budget))
+        self.metrics = metrics if metrics is not None else Metrics.nop()
+        # the BackendSupervisor (crypto/supervisor.py) when the node
+        # wires one: every dispatch then runs under its watchdog/breaker/
+        # audit instead of the bare one-shot CPU fallback below
+        self._supervisor = supervisor
+        self._max_queue = max(1, max_queue_default(max_queue))
+        self._tracer = tracer if tracer is not None else tracelib.default_tracer()
+        # the capacity-telemetry hub (crypto/telemetry.py) when the node
+        # wires one: every demuxed request is then RED-metered under its
+        # origin tag and feeds the SLO engine. None = zero cost.
+        self._telemetry = telemetry
+        self._submit_timeout_s = submit_timeout_default(
+            submit_timeout_ms
+        ) / 1e3
+        self._join_timeout_s = join_timeout_s
+
+        # -- QoS admission control (crypto/qos.py) -------------------------
+        # env CBFT_QOS_CLASSES > constructor/config > built-in ladder;
+        # "off" = the legacy single FIFO (one block-policy lane bounded
+        # at max_queue — bit-identical to the pre-QoS scheduler).
+        specs = qoslib.parse_qos_classes(qoslib.qos_classes_default(qos))
+        self._qos_enabled = specs is not None
+        self.qos_metrics = (
+            qos_metrics if qos_metrics is not None else qoslib.QoSMetrics.nop()
+        )
+        if specs is None:
+            specs = [qoslib.ClassSpec(
+                name=_FIFO, policy=qoslib.POLICY_BLOCK,
+                max_queue=None, weight=1,
+            )]
+        self._lanes: "collections.OrderedDict[str, _Lane]" = (
+            collections.OrderedDict()
+        )
+        for s in specs:
+            bound = s.max_queue if s.max_queue is not None else self._max_queue
+            self._lanes[s.name] = _Lane(s, max(1, bound), self.qos_metrics)
+        self._class_names = tuple(self._lanes.keys())
+        self._quotas = qoslib.TenantQuotas(
+            qoslib.tenant_rate_default(tenant_rate)
+        )
+        self.brownout: Optional[qoslib.BrownoutController] = None
+        if self._qos_enabled:
+            # disable order: lowest priority first; block-policy classes
+            # are exactly who brownout protects, so they are never in
+            # the ladder
+            ladder = [
+                s.name for s in reversed(specs)
+                if s.policy != qoslib.POLICY_BLOCK
+            ]
+            self.brownout = qoslib.BrownoutController(
+                ladder, on_change=self._on_brownout_change
+            )
+
+        self._cond = threading.Condition()
+        self._inflight: List[_Request] = []
+        self._pending_lanes = 0
+        self._flush_asked = False
+        self._draining = False
+        # flipped (under _cond) by on_stop immediately before the
+        # leftover sweep: any submit that lost the race dispatches
+        # inline on its own thread instead of appending to a queue
+        # nobody will ever drain again
+        self._accepting = True
+        self._worker: Optional[threading.Thread] = None
+        # observability for tests/bench: coalesced dispatches performed
+        self.n_dispatches = 0
+        self._flush_reasons: Dict[str, int] = {
+            r: 0 for r in _FLUSH_REASONS
+        }
+        # three-way routing ladder (CPU / single-chip / sharded mesh):
+        # the [crypto] shard_min_batch config (0 = auto) is resolved
+        # lazily against the calibration table on the first supervised
+        # flush, and per-route dispatch counts feed /debug + verify_top
+        self._shard_min_batch_cfg = shard_min_batch
+        self._shard_min_batch_resolved: Optional[int] = None
+        self._routes = {"cpu": 0, "single": 0, "sharded": 0, "indexed": 0}
+
+        # -- live priced router (CBFT_ROUTER / [crypto] router) ------------
+        # "priced": per-flush argmin over decision-ledger-priced feasible
+        # candidates, with a hysteretic rollback to the threshold ladder
+        # while the anomaly watchdog says the cost model is stale.
+        self._router_mode = router_default(router)
+        self._router_rolled_back = False
+        self._router_clean = 0          # clean flushes toward re-admission
+        self._router_rollbacks = 0
+        self._router_readmits = 0
+        self._router_rollback_cause: Optional[str] = None
+        # which router produced the LAST flush's route (verify_top line)
+        self._router_last: Optional[str] = None
+        # CBFT_MESH_ROUTE parse-once cache: (raw env value, verdict) —
+        # a malformed pin logs exactly one warning per distinct value
+        # instead of re-parsing and re-logging on every flush
+        self._pin_cache: Optional[
+            Tuple[Optional[str], Optional[str]]
+        ] = None
+
+    # -- knob introspection --------------------------------------------------
+
+    @property
+    def flush_us(self) -> int:
+        return int(self._flush_s * 1e6)
+
+    @property
+    def lane_budget(self) -> int:
+        return self._lane_budget
+
+    @property
+    def max_queue(self) -> int:
+        return self._max_queue
+
+    @property
+    def supervisor(self):
+        return self._supervisor
+
+    @property
+    def qos_enabled(self) -> bool:
+        return self._qos_enabled
+
+    @property
+    def shard_min_batch(self) -> int:
+        """The resolved sharded-routing floor (resolves lazily so a
+        calibration recorded after construction is still honored)."""
+        if self._shard_min_batch_resolved is None:
+            self._shard_min_batch_resolved = max(
+                1, shard_min_batch_default(self._shard_min_batch_cfg)
+            )
+        return self._shard_min_batch_resolved
+
+    @property
+    def router_mode(self) -> str:
+        return self._router_mode
+
+    def _router_live(self) -> str:
+        """The router that would serve the next unpinned flush:
+        "priced" | "threshold" | "rolled-back" (verify_top's label)."""
+        if self._router_mode != ROUTER_PRICED:
+            return ROUTER_THRESHOLD
+        if self._router_rolled_back:
+            return "rolled-back"
+        return ROUTER_PRICED
+
+    def queue_snapshot(self) -> dict:
+        """Point-in-time queue state for the health/capacity plane
+        (/debug/verify): what is waiting, what budget the next
+        size-flush targets, per-route and per-flush-reason dispatch
+        counts, and the QoS plane (per-class lanes, brownout state)."""
+        with self._cond:
+            snap = {
+                "queue_depth": self._depth_locked(),
+                "pending_lanes": self._pending_lanes,
+                "lane_budget": self._lane_budget,
+                "effective_lane_budget": self._effective_lane_budget(),
+                "flush_us": self.flush_us,
+                "dispatches": self.n_dispatches,
+                "routes": dict(self._routes),
+                "flush_reasons": dict(self._flush_reasons),
+                "router": {
+                    "mode": self._router_mode,
+                    "live": self._router_live(),
+                    "rolled_back": self._router_rolled_back,
+                    "rollbacks": self._router_rollbacks,
+                    "readmits": self._router_readmits,
+                    "rollback_cause": self._router_rollback_cause,
+                    "clean_streak": self._router_clean,
+                    "last": self._router_last,
+                },
+            }
+            # device key-store state rides along (resident valsets,
+            # generation, indexed-dispatch stats) — best-effort
+            try:
+                from cometbft_tpu_torch.crypto.cuda import keystore
+
+                snap["keystore"] = keystore.default_store().snapshot()
+            except Exception:  # noqa: BLE001 - observability only
+                pass
+            if not self._qos_enabled:
+                snap["qos"] = {"enabled": False}
+                return snap
+            disabled = set(
+                self.brownout.disabled() if self.brownout else ()
+            )
+            classes = {}
+            for i, (name, lane) in enumerate(self._lanes.items()):
+                classes[name] = {
+                    "priority": i,
+                    "policy": lane.spec.policy,
+                    "max_queue": lane.bound,
+                    "weight": lane.spec.weight,
+                    "depth": len(lane.reqs),
+                    "pending_sigs": lane.pending_sigs,
+                    "admits": lane.admits,
+                    "sheds": lane.sheds,
+                    "drops": lane.drops,
+                    "quota_rejections": lane.quota_rejections,
+                    "browned_out": name in disabled,
+                }
+            snap["qos"] = {
+                "enabled": True,
+                "classes": classes,
+                "brownout": (
+                    self.brownout.snapshot() if self.brownout else {}
+                ),
+                "tenant_rate": self._quotas.rate,
+            }
+            return snap
+
+    def _depth_locked(self) -> int:
+        return sum(len(lane.reqs) for lane in self._lanes.values())
+
+    def _effective_lane_budget(self) -> int:
+        """The size-flush threshold scaled to the capacity the HEALTHY
+        fault domains can actually absorb right now: with k of N devices
+        quarantined (or OOM-shrunk), coalescing to the full nominal
+        budget just builds a batch the survivors must split anyway —
+        flushing at the surviving capacity keeps per-device chunk sizes
+        on target. Duck-typed: any supervisor without
+        healthy_capacity_fraction (or a failing one) means the nominal
+        budget."""
+        sup = self._supervisor
+        if sup is None:
+            return self._lane_budget
+        frac_fn = getattr(sup, "healthy_capacity_fraction", None)
+        if frac_fn is None:
+            return self._lane_budget
+        try:
+            frac = float(frac_fn())
+        except Exception:  # noqa: BLE001 - budget is advisory
+            return self._lane_budget
+        if frac <= 0.0 or frac >= 1.0:
+            return self._lane_budget
+        return max(1, int(self._lane_budget * frac))
+
+    # -- QoS hooks -----------------------------------------------------------
+
+    def on_burn(self, burn: float) -> None:
+        """TelemetryHub burn-watcher entry point (the same hook the
+        incident profiler rides): SLO error-budget burn feeds the
+        brownout controller. No-op with QoS off."""
+        if self.brownout is not None:
+            self.brownout.observe_burn(burn)
+
+    def on_supervisor_state(self, state: str) -> None:
+        """BackendSupervisor state-listener entry point: an aggregate
+        DEGRADED/BROKEN transition is overload evidence even before the
+        SLO window catches up. No-op with QoS off."""
+        if self.brownout is not None:
+            self.brownout.observe_state(state)
+
+    def _on_brownout_change(self, cls: str, disabled: bool) -> None:
+        if disabled:
+            self.qos_metrics.brownouts.with_labels(qclass=cls).add()
+            self.qos_metrics.brownout_active.with_labels(qclass=cls).set(1)
+            self.logger.error(
+                "qos brownout: class disabled under overload", qclass=cls,
+            )
+        else:
+            self.qos_metrics.readmits.with_labels(qclass=cls).add()
+            self.qos_metrics.brownout_active.with_labels(qclass=cls).set(0)
+            self.logger.info(
+                "qos brownout: class re-admitted", qclass=cls,
+            )
+        if self._telemetry is not None:
+            note = getattr(self._telemetry, "note_event", None)
+            if note is not None:
+                note(
+                    "brownout_trip" if disabled else "brownout_readmit",
+                    {"qclass": cls},
+                )
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def on_start(self) -> None:
+        self._worker = threading.Thread(
+            target=self._run, daemon=True, name="verify-scheduler"
+        )
+        self._worker.start()
+
+    def on_stop(self) -> None:
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        w = self._worker
+        joined = True
+        if w is not None and w is not threading.current_thread():
+            w.join(timeout=self._join_timeout_s)
+            joined = not w.is_alive()
+        with self._cond:
+            # close admission BEFORE sweeping leftovers: a submit that
+            # reacquires the lock after this point sees _accepting False
+            # and dispatches inline instead of appending to lanes nobody
+            # will drain again (the future-leak race)
+            self._accepting = False
+            leftovers: List[_Request] = []
+            for lane in self._lanes.values():
+                leftovers.extend(lane.reqs)
+                lane.reqs.clear()
+                lane.pending_sigs = 0
+                lane.deficit = 0
+            inflight = list(self._inflight)
+            self._pending_lanes = 0
+            self._cond.notify_all()  # release backpressured submitters
+        if not joined:
+            # the worker is wedged inside a dispatch (a hung device plane
+            # with no supervisor watchdog): an inline dispatch here could
+            # wedge the stopping thread the same way — fail every pending
+            # future loudly instead of leaving callers blocked forever.
+            # (VerifyFuture completion is first-wins, so a zombie worker
+            # that later limps home cannot overwrite the error.)
+            self.logger.error(
+                "verify worker failed to join; failing pending futures",
+                join_timeout_s=self._join_timeout_s,
+                pending=len(leftovers) + len(inflight),
+            )
+            exc = RuntimeError(
+                "verify scheduler stopped while its worker was wedged in "
+                "a dispatch; request abandoned"
+            )
+            for req in inflight + leftovers:
+                req.future._set_exception(exc)
+                req.span.end(error="abandoned_on_stop")
+            return
+        # worker exited cleanly: complete whatever is still queued inline
+        # so no future is left hanging
+        if leftovers:
+            self._dispatch(leftovers, "drain")
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(
+        self,
+        items: Sequence[Item],
+        subsystem: Optional[str] = None,
+        height: Optional[int] = None,
+    ) -> VerifyFuture:
+        """Queue ``items`` (``(pub_key, msg, sig)`` triples) for the next
+        coalesced dispatch. Thread-safe; never blocks on the device, but
+        MAY block (bounded by CBFT_SUBMIT_TIMEOUT_MS, or the class's
+        shed deadline) for queue room when the class lane is at its
+        bound.
+
+        ``subsystem`` resolves the request's QoS class (untagged maps
+        to the top class — commit verification must never be shed by
+        default) and, with ``height``, tags the request's trace span and
+        lets supervisor triage attribute offending signatures back to
+        the submitting subsystem/block in metrics and logs."""
+        triples = [(pk, bytes(m), bytes(s)) for pk, m, s in items]
+        qclass = qoslib.resolve_class(subsystem, self._class_names)
+        span = self._tracer.start_span("request", n_sigs=len(triples))
+        if not span.noop:
+            if subsystem:
+                span.set_tag("subsystem", subsystem)
+            if height is not None:
+                span.set_tag("height", int(height))
+            if self._qos_enabled:
+                span.set_tag("qos_class", qclass)
+        req = _Request(triples, span, subsystem, height, qclass)
+        self.metrics.requests.add()
+        self.metrics.signatures.add(len(req.items))
+        if not req.items:
+            req.future._set((True, []))
+            span.end(outcome="empty")
+            return req.future
+        return self._submit_req(req, subsystem or qoslib.TENANT_UNTAGGED)
+
+    def _submit_req(self, req: _Request, tenant: str) -> VerifyFuture:
+        """The admission ladder of a submission."""
+        qclass = req.qclass
+        if not self.is_running():
+            # standalone / post-stop: synchronous inline dispatch keeps
+            # the contract (future complete on return, exact verdicts)
+            self._dispatch([req], "explicit")
+            return req.future
+        lane = self._lanes[qclass]
+        policy = lane.spec.policy
+        # admission outcome decided under the lock, acted on outside it
+        # (the shed/drop paths verify or complete without the lock held)
+        action: Optional[str] = None
+        with self._cond:
+            if not self._accepting:
+                action = "stopped"
+            elif (
+                self.brownout is not None
+                and not self.brownout.allows(qclass)
+            ):
+                # browned-out class: apply the overload policy without
+                # touching the lane (only sheddable classes are ever in
+                # the brownout ladder)
+                action = (
+                    "drop" if policy == qoslib.POLICY_DROP else "shed"
+                )
+            elif not self._quotas.try_take(tenant, req.n_lanes):
+                lane.quota_rejections += 1
+                self.qos_metrics.quota_rejections.with_labels(
+                    tenant=tenant
+                ).add()
+                if policy == qoslib.POLICY_SHED:
+                    action = "shed"
+                elif policy == qoslib.POLICY_DROP:
+                    action = "drop"
+                # block-policy classes are never throttled by quota —
+                # consensus must not stall because its tenant is hot; the
+                # rejection is counted (metric + snapshot) and admission
+                # proceeds
+            if action is None and (
+                lane.pending_sigs >= lane.bound and lane.reqs
+            ):
+                # Backpressure: a stalled device plane must surface as
+                # bounded blocking here, not unbounded queue growth. An
+                # empty lane always admits (one oversize request may
+                # exceed the bound on its own — it still has to verify
+                # somewhere).
+                if policy == qoslib.POLICY_DROP:
+                    action = "drop"
+                else:
+                    self.metrics.backpressure_waits.add()
+                    wait_budget = (
+                        self._submit_timeout_s
+                        if policy == qoslib.POLICY_BLOCK
+                        else lane.spec.shed_ms / 1e3
+                    )
+                    deadline = time.monotonic() + wait_budget
+                    timed_out = False
+                    while (
+                        lane.pending_sigs >= lane.bound
+                        and lane.reqs
+                        and not self._draining
+                        and self._accepting
+                    ):
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            timed_out = True
+                            break
+                        self._cond.wait(left)
+                    if not self._accepting:
+                        action = "stopped"
+                    elif timed_out:
+                        action = (
+                            "shed" if policy == qoslib.POLICY_SHED
+                            else "block_timeout"
+                        )
+            if action is None:
+                lane.reqs.append(req)
+                lane.pending_sigs += req.n_lanes
+                lane.admits += 1
+                self._pending_lanes += req.n_lanes
+                self.metrics.queue_depth.set(self._depth_locked())
+                self.metrics.pending_lanes.set(self._pending_lanes)
+                if self._qos_enabled:
+                    self.qos_metrics.admits.with_labels(qclass=qclass).add()
+                    lane.g_depth.set(len(lane.reqs))
+                    lane.g_pending.set(lane.pending_sigs)
+                self._cond.notify_all()
+                return req.future
+        if action == "stopped":
+            # lost the race with stop(): the final drain sweep is done,
+            # so complete on the submitting thread (exact verdicts)
+            self._dispatch([req], "explicit")
+            return req.future
+        if action == "drop":
+            self._drop(req, lane)
+            return req.future
+        if action == "shed":
+            self._shed_inline(req, lane)
+            return req.future
+        # block_timeout: the lane never drained within the deadline —
+        # verify inline on the CPU ground truth so the caller still gets
+        # exact verdicts, memory stays bounded, and no future is lost
+        self.metrics.backpressure_timeouts.add()
+        self.logger.error(
+            "verify queue full past deadline; verifying inline on CPU",
+            n=req.n_lanes, qclass=qclass, max_queue=lane.bound,
+            timeout_s=self._submit_timeout_s,
+        )
+        self._inline_cpu(req, outcome="backpressure_cpu")
+        return req.future
+
+    def _inline_cpu(self, req: _Request, outcome: str) -> None:
+        """Verify a refused request inline on the submitter's CPU and
+        RED-meter the verdict under its tenant tag — an overloaded
+        tenant must look overloaded in /debug/verify, not drop out of
+        its own rate the moment its traffic stops riding the device."""
+        t0 = time.monotonic()
+        mask = self._cpu_ground_truth(req.items)
+        service_s = time.monotonic() - t0
+        ok = all(mask)
+        req.future._set((ok, mask))
+        req.span.end(outcome=outcome, ok=ok)
+        if self._telemetry is not None:
+            self._telemetry.note_request(
+                n_sigs=len(req.items),
+                wait_s=t0 - req.t_submit,
+                service_s=service_s,
+                ok=ok,
+                subsystem=req.subsystem,
+                height=req.height,
+            )
+
+    def _shed_inline(self, req: _Request, lane: _Lane) -> None:
+        """Shed-policy overload action: the submitter pays its own CPU
+        verify instead of stalling the lane. Exact verdicts, counted."""
+        with self._cond:
+            lane.sheds += 1
+        self.qos_metrics.sheds.with_labels(
+            qclass=lane.spec.name, policy=qoslib.POLICY_SHED
+        ).add()
+        self.qos_metrics.shed_sigs.with_labels(
+            qclass=lane.spec.name
+        ).add(req.n_lanes)
+        self._inline_cpu(req, outcome="qos_shed")
+
+    def _drop(self, req: _Request, lane: _Lane) -> None:
+        """Drop-policy overload action: best-effort traffic gets an
+        immediate ``rejected`` verdict (all-False mask, ``rejected``
+        flag set) — the caller re-verifies on CPU if it still cares.
+        The error IS metered under the tenant so a flooding tenant's
+        error rate rises in /debug/verify."""
+        with self._cond:
+            lane.drops += 1
+        self.qos_metrics.sheds.with_labels(
+            qclass=lane.spec.name, policy=qoslib.POLICY_DROP
+        ).add()
+        self.qos_metrics.shed_sigs.with_labels(
+            qclass=lane.spec.name
+        ).add(req.n_lanes)
+        req.future.rejected = True
+        req.future._set((False, [False] * req.n_lanes))
+        req.span.end(outcome="qos_drop", ok=False)
+        if self._telemetry is not None:
+            self._telemetry.note_request(
+                n_sigs=req.n_lanes,
+                wait_s=time.monotonic() - req.t_submit,
+                service_s=0.0,
+                ok=False,
+                subsystem=req.subsystem,
+                height=req.height,
+            )
+
+    def flush(self) -> None:
+        """Ask the worker to dispatch whatever is pending right now."""
+        if not self.is_running():
+            return
+        with self._cond:
+            self._flush_asked = True
+            self._cond.notify_all()
+
+    # -- worker --------------------------------------------------------------
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                reason = None
+                while reason is None:
+                    if self._draining:
+                        reason = "drain"
+                        break
+                    if self._pending_lanes >= self._effective_lane_budget():
+                        reason = "size"
+                        break
+                    depth = self._depth_locked()
+                    if self._flush_asked:
+                        # an explicit flush with nothing pending is a no-op
+                        self._flush_asked = False
+                        if depth:
+                            reason = "explicit"
+                            break
+                    if depth and self._supervisor is not None:
+                        sup_state = self._sup_state()
+                        if sup_state == "broken":
+                            # open breaker: every dispatch is CPU-routed,
+                            # so there is nothing to coalesce FOR —
+                            # waiting out flush_us only adds latency
+                            reason = "broken"
+                            break
+                    if depth:
+                        oldest = min(
+                            lane.reqs[0].t_submit
+                            for lane in self._lanes.values() if lane.reqs
+                        )
+                        wake = oldest + self._flush_s
+                        left = wake - time.monotonic()
+                        if left <= 0:
+                            reason = "deadline"
+                            break
+                        self._cond.wait(left)
+                    else:
+                        self._cond.wait(0.1)
+                batch = self._assemble_locked(
+                    self._effective_lane_budget(),
+                    unbounded=(
+                        not self._qos_enabled or reason == "drain"
+                    ),
+                )
+                self._inflight = batch
+                self.metrics.queue_depth.set(self._depth_locked())
+                self.metrics.pending_lanes.set(self._pending_lanes)
+                draining = self._draining
+                # queue room just opened: wake backpressured submitters
+                self._cond.notify_all()
+            if batch:
+                try:
+                    self._dispatch(batch, reason)
+                finally:
+                    with self._cond:
+                        self._inflight = []
+            if draining and not batch:
+                return
+            if draining:
+                # one more sweep: a submit that raced stop lands too
+                continue
+
+    def _sup_state(self) -> Optional[str]:
+        try:
+            state = self._supervisor.state()
+        except Exception:  # noqa: BLE001 - supervisor state is advisory
+            return None
+        # the worker polls this anyway — feed the brownout controller so
+        # a scheduler without the node's listener wiring still reacts
+        if self.brownout is not None:
+            self.brownout.observe_state(state)
+        return state
+
+    def _assemble_locked(
+        self, budget: int, unbounded: bool
+    ) -> List[_Request]:
+        """Pull the next coalesced batch out of the class lanes: the top
+        class is served strictly first (votes never wait behind anything),
+        then the remaining budget is shared across the lower classes by
+        weighted deficit round-robin — each backlogged lane earns
+        weight × quantum signatures of credit per round and spends it on
+        whole requests, so progress is proportional to weight without
+        ever splitting a request. Unspent credit carries to the next
+        flush while the lane stays backlogged. ``unbounded`` (QoS off /
+        final drain) takes everything in priority order."""
+        batch: List[_Request] = []
+        total = 0
+        lanes = list(self._lanes.values())
+
+        def take(lane: _Lane) -> None:
+            nonlocal total
+            req = lane.reqs.popleft()
+            n = req.n_lanes
+            lane.pending_sigs -= n
+            self._pending_lanes -= n
+            total += n
+            batch.append(req)
+
+        def fits(lane: _Lane) -> bool:
+            if unbounded or not batch:
+                # an empty batch always takes one request: an oversize
+                # request still has to dispatch somewhere
+                return True
+            return total + lane.reqs[0].n_lanes <= budget
+
+        top = lanes[0]
+        while top.reqs:
+            if not fits(top):
+                return batch  # the budget went entirely to the top class
+            take(top)
+        lower = [lane for lane in lanes[1:] if lane.reqs]
+        # quantum scaled to the budget actually left for the lower
+        # classes: with the nominal 64-sig quantum and a small effective
+        # budget, one round of the first lane's weight would swallow the
+        # whole flush and the classes below it would never interleave
+        if lower:
+            remaining = max(1, budget - total)
+            weight_sum = sum(lane.spec.weight for lane in lower)
+            quantum = max(1, min(
+                qoslib.DRR_QUANTUM, remaining // max(1, weight_sum)
+            ))
+        budget_full = False
+        while lower and not budget_full:
+            for lane in lower:
+                lane.deficit += lane.spec.weight * quantum
+                while (
+                    lane.reqs
+                    and lane.deficit >= lane.reqs[0].n_lanes
+                ):
+                    if not fits(lane):
+                        budget_full = True
+                        break
+                    lane.deficit -= lane.reqs[0].n_lanes
+                    take(lane)
+                if budget_full:
+                    break
+            lower = [lane for lane in lower if lane.reqs]
+        for lane in lanes:
+            if not lane.reqs:
+                lane.deficit = 0
+            if self._qos_enabled:
+                lane.g_depth.set(len(lane.reqs))
+                lane.g_pending.set(lane.pending_sigs)
+        return batch
+
+    def _dispatch(self, batch: List[_Request], reason: str) -> None:
+        """ONE backend verify over the coalesced items, demultiplexed back
+        into per-request verdict slices."""
+        t0 = time.monotonic()
+        # (the reference polls its memory plane here; ROADMAP A.4)
+        items: List[Item] = []
+        parent = None
+        waits: List[float] = []
+        by_class: Dict[str, List[int]] = {}
+        n_total = 0
+        for req in batch:
+            wait_s = t0 - req.t_submit
+            waits.append(wait_s)
+            self.metrics.request_wait_seconds.observe(wait_s)
+            items.extend(req.items)
+            n_total += req.n_lanes
+            counts = by_class.setdefault(req.qclass, [0, 0])
+            counts[0] += 1
+            counts[1] += req.n_lanes
+            if not req.span.noop:
+                req.span.set_tag("wait_us", int(wait_s * 1e6))
+                if parent is None:
+                    # the OLDEST sampled request hosts the dispatch span
+                    # (spans form a tree; coalesced siblings link by tag)
+                    parent = req.span
+        self.n_dispatches += 1
+        self.metrics.flushes.with_labels(reason=reason).add()
+        with self._cond:
+            self._flush_reasons[reason] = (
+                self._flush_reasons.get(reason, 0) + 1
+            )
+        lane_fill = min(1.0, n_total / self._lane_budget)
+        self.metrics.lane_fill_ratio.observe(lane_fill)
+        dspan = self._tracer.start_span(
+            "dispatch",
+            parent=parent,
+            reason=reason,
+            n_requests=len(batch),
+            n_sigs=n_total,
+            lane_fill=round(lane_fill, 4),
+        )
+        if not dspan.noop:
+            did = format(dspan.span_id, "x")
+            for req in batch:
+                if req.span is not parent and not req.span.noop:
+                    req.span.set_tag("dispatch_span", did)
+            if self._qos_enabled:
+                # per-class composition of this flush, e.g.
+                # "consensus=3r/48s,mempool=1r/16s"
+                dspan.set_tag("qos_classes", ",".join(
+                    f"{name}={c[0]}r/{c[1]}s"
+                    for name, c in by_class.items()
+                ))
+        # demux shape for supervisor triage attribution: one
+        # (n_items, subsystem, height) per coalesced request, item order
+        origins = [
+            (req.n_lanes, req.subsystem, req.height) for req in batch
+        ]
+        # decision plane ride-along: one RouteDecision per flush, input
+        # gathering gated on an installed ledger so the off-edge is a
+        # single attribute read (bench_micro's decisions section bounds
+        # the on-edge under 1%).
+        declgr = declib.default_ledger()
+        dec = None
+        if declgr is not None:
+            breakers = self._decision_breakers()
+            dec = declgr.open(
+                n=len(items),
+                reason=reason,
+                capacity=self._decision_capacity(),
+                breakers=breakers,
+                keystore=self._decision_keystore(),
+                qos={name: c[1] for name, c in by_class.items()} or None,
+                feasible=self._decision_feasible(items, breakers),
+            )
+        t_verify = time.perf_counter()
+        try:
+            with tracelib.use(dspan), declib.use(dec):
+                mask, wire_route = self._verify(items, reason, origins)
+        except BuildError as exc:
+            # no kernel to run: every rider gets the error, none a CPU
+            # verdict, and the worker lives on for the next flush
+            dspan.end(error=repr(exc))
+            for req in batch:
+                req.future._set_exception(exc)
+                req.span.end(error="build_failed")
+            return
+        except BaseException as exc:
+            dspan.end(error=repr(exc))
+            raise
+        finally:
+            # finish whenever the route ladder ran (taken was noted) so
+            # ledger counts reconcile with _routes even on a raise
+            if dec is not None and dec.taken is not None:
+                declgr.finish(dec, time.perf_counter() - t_verify)
+        # flush-level tag: which wire route served this dispatch rides
+        # on the dispatch span (the reference also notes the demux below
+        # in its wire ledger; ROADMAP A.4)
+        dspan.end(route=wire_route)
+        service_s = time.monotonic() - t0
+        pos = 0
+        for i, req in enumerate(batch):
+            sub = mask[pos : pos + req.n_lanes]
+            pos += req.n_lanes
+            ok = all(sub)
+            req.future._set((ok, sub))
+            req.span.end(ok=ok)
+            if self._telemetry is not None:
+                # the coalesced dispatch's service time is every rider's
+                # service time — they all waited on the same flush
+                self._telemetry.note_request(
+                    n_sigs=req.n_lanes,
+                    wait_s=waits[i],
+                    service_s=service_s,
+                    ok=ok,
+                    subsystem=req.subsystem,
+                    height=req.height,
+                )
+
+    # decision-plane input gathering — each best-effort and only run
+    # when a decision ledger is installed
+
+    def _decision_capacity(self) -> Optional[float]:
+        sup = self._supervisor
+        if sup is None:
+            return None
+        try:
+            return sup.healthy_capacity_fraction()
+        except Exception:  # noqa: BLE001 - inputs are advisory
+            return None
+
+    def _decision_breakers(self) -> Optional[Dict[str, str]]:
+        sup = self._supervisor
+        if sup is None:
+            return None
+        try:
+            return sup.device_states()
+        except Exception:  # noqa: BLE001 - inputs are advisory
+            return None
+
+    def _decision_keystore(self) -> Optional[Dict[str, object]]:
+        try:
+            from cometbft_tpu_torch.crypto.cuda import keystore
+
+            return keystore.default_store().residency()
+        except Exception:  # noqa: BLE001 - inputs are advisory
+            return None
+
+    def _pin_route(self) -> Optional[str]:
+        """CBFT_MESH_ROUTE operator pin, parsed ONCE per distinct raw
+        value and cached. A malformed pin logs exactly one warning and
+        then routes on size/price like no pin at all — the old shape
+        re-parsed (and re-logged) on every flush. The cache keys on the
+        raw value, so flipping the env var mid-run still takes effect
+        on the next flush."""
+        raw = os.environ.get("CBFT_MESH_ROUTE")
+        cached = self._pin_cache
+        if cached is not None and cached[0] == raw:
+            return cached[1]
+        verdict: Optional[str] = None
+        try:
+            from cometbft_tpu_torch.crypto.cuda import mesh
+        except Exception:  # noqa: BLE001 - no device package, no pinning
+            self._pin_cache = (raw, None)
+            return None
+        try:
+            verdict = mesh.parse_route(raw)
+        except ValueError:
+            self.logger.error(
+                "malformed CBFT_MESH_ROUTE; routing on size", value=raw,
+            )
+        self._pin_cache = (raw, verdict)
+        return verdict
+
+    def _route_for(self, n: int) -> Optional[str]:
+        """Threshold routing ladder — the pre-priced shape, and what the
+        priced router falls back to when cold or rolled back. The CPU
+        rung stays where it always was (a cpu spec / the calibrated
+        per-curve floor inside the backend); this decides single-chip vs
+        sharded mesh for a device-bound flush: CBFT_MESH_ROUTE operator
+        override > sharded when the healthy mesh has ≥2 devices and the
+        flush clears shard_min_batch > None (legacy single-chip auto)."""
+        if self.spec.name == "cpu":
+            return None
+        override = self._pin_route()
+        if override is not None:
+            return override
+        try:
+            from cometbft_tpu_torch.crypto.cuda import mesh
+
+            topo = getattr(self._supervisor, "topology", None)
+            if n >= self.shard_min_batch and mesh.sharded_available(topo):
+                return mesh.ROUTE_SHARDED
+        except Exception:  # noqa: BLE001 - routing is advisory
+            pass
+        return None
+
+    def _decision_feasible(
+        self,
+        items: List[Item],
+        breakers: Optional[Dict[str, str]],
+    ) -> Dict[str, bool]:
+        """Per-candidate feasibility at decision time — the one filter
+        BOTH the priced argmin and the ledger's regret math apply, so a
+        candidate that could never have been taken (breaker BROKEN,
+        non-resident keys, mesh below two devices) can neither be chosen
+        nor counted as a cheaper road not taken.
+
+        * cpu — always feasible (the ground truth never goes away); a
+          cpu backend spec makes it the ONLY feasible rung.
+        * single — feasible unless every supervised breaker is BROKEN
+          (the supervisor would cpu-route the dispatch anyway).
+        * sharded — single's gate AND a supervised healthy ≥2-device
+          mesh.
+        * indexed — single's gate AND a supervised single-device mesh
+          AND every pubkey of the flush resident in one fresh keystore
+          entry on the spec's device (keystore.covers).
+        * device_hash — never a verify-flush candidate (it serves the
+          hash plane); priced for observability, filtered here.
+        """
+        feasible = {
+            "cpu": True, "single": False, "sharded": False,
+            "indexed": False, "device_hash": False,
+        }
+        if self.spec.name == "cpu":
+            return feasible
+        all_broken = bool(breakers) and all(
+            s == "broken" for s in breakers.values()
+        )
+        feasible["single"] = not all_broken
+        if all_broken:
+            return feasible
+        n_dev = 0
+        if self._supervisor is not None:
+            try:
+                from cometbft_tpu_torch.crypto.cuda import mesh
+
+                topo = getattr(self._supervisor, "topology", None)
+                feasible["sharded"] = bool(mesh.sharded_available(topo))
+                # the reference counts jax devices; the port counts the
+                # supervisor's fault domains (one card, or the host that
+                # runs the plain twins)
+                n_dev = len(topo) if topo is not None else 0
+            except Exception:  # noqa: BLE001 - feasibility is advisory
+                n_dev = 0
+        if n_dev == 1:
+            try:
+                from cometbft_tpu_torch.crypto.cuda import keystore
+
+                device = backend_device(self.spec)
+                feasible["indexed"] = device is not None and keystore.covers(
+                    [pk for pk, _, _ in items], device
+                )
+            except Exception:  # noqa: BLE001 - feasibility is advisory
+                pass
+        return feasible
+
+    def _router_guard(self, declgr) -> bool:
+        """Hysteretic rollback guard for the priced router — the qos
+        brownout shape applied to routing. Roll back to the threshold
+        ladder the moment the decision plane's anomaly watchdog trips
+        (stale world-model) or the windowed regret-event rate crosses
+        the ledger's trip level; re-admit the priced router only after
+        ROUTER_REARM_CLEAN consecutive clean flushes below HALF the
+        trip level. Returns True when priced routing may serve this
+        flush."""
+        wd = declgr.watchdog_state()
+        win = declgr.windowed()
+        tripped = wd.get("tripped")
+        rate = win.get("regret_rate") or 0.0
+        obs = win.get("observations") or 0
+        hot = tripped is not None or (
+            obs >= declib.MIN_TRIP_OBS and rate > declgr.regret_trip
+        )
+        if not self._router_rolled_back:
+            if hot:
+                self._router_rolled_back = True
+                self._router_clean = 0
+                self._router_rollbacks += 1
+                self._router_rollback_cause = tripped or "regret"
+                self.logger.error(
+                    "priced router rolled back to thresholds",
+                    cause=self._router_rollback_cause,
+                    regret_rate=round(rate, 4),
+                )
+                return False
+            return True
+        clean = tripped is None and rate <= declgr.regret_trip / 2.0
+        if clean:
+            self._router_clean += 1
+            if self._router_clean >= ROUTER_REARM_CLEAN:
+                self._router_rolled_back = False
+                self._router_clean = 0
+                self._router_readmits += 1
+                self._router_rollback_cause = None
+                self.logger.info(
+                    "priced router re-admitted after clean windows"
+                )
+                return True
+        else:
+            self._router_clean = 0
+        return False
+
+    def _priced_argmin(
+        self, dec
+    ) -> Optional[Tuple[str, Optional[str]]]:
+        """The cheapest feasible candidate from the open decision's
+        priced menu, as (counted label, supervisor route) — or None when
+        the model is too cold to judge: ANY feasible primary rung
+        (cpu/single/sharded) still unpriced means an argmin over the
+        partial menu would systematically dodge the routes it cannot
+        see, so cold flushes stay on thresholds and keep feeding the
+        prediction ladder observations."""
+        feas = dec.feasible or {}
+        best: Optional[Tuple[str, float]] = None
+        for cand, pred in dec.predicted.items():
+            if not feas.get(cand, False):
+                continue
+            if pred is None:
+                if cand in declib.ROUTES:
+                    return None  # cold primary: no argmin this flush
+                continue  # unpriced sub-route: just not a candidate
+            if best is None or pred < best[1]:
+                best = (cand, pred)
+        if best is None:
+            return None
+        label = best[0]
+        if label == "cpu":
+            # argmin says host: dispatched straight on the ground truth
+            return "cpu", None
+        if label == "single":
+            # priced single keeps the legacy per-domain partition (the
+            # supervisor's None route) — "single" as a supervisor route
+            # means PINNED to one chip, which is the pin's business
+            return "single", None
+        return label, label  # "sharded" / "indexed"
+
+    def _route(self, n: int, items: List[Item]) -> Tuple[
+        str, Optional[str], str
+    ]:
+        """Live routing decision for one coalesced flush:
+        (counted label, supervisor route, router tag). Precedence:
+        CBFT_MESH_ROUTE pin > priced argmin over feasible candidates
+        (router mode "priced", rollback guard cold, every feasible
+        primary priced) > the threshold ladder."""
+        if self.spec.name == "cpu":
+            return "cpu", None, ROUTER_THRESHOLD
+        pin = self._pin_route()
+        if pin is not None:
+            label = "sharded" if pin == "sharded" else "single"
+            return label, pin, "pinned"
+        tag = ROUTER_THRESHOLD
+        if self._router_mode == ROUTER_PRICED:
+            dec = declib.current()
+            declgr = declib.default_ledger()
+            if dec is not None and declgr is not None:
+                if self._router_guard(declgr):
+                    choice = self._priced_argmin(dec)
+                    if choice is not None:
+                        return choice[0], choice[1], ROUTER_PRICED
+                    # cold model: threshold fallback, tagged as such
+                else:
+                    tag = "rolled-back"
+        route = (
+            self._route_for(n) if self._supervisor is not None else None
+        )
+        label = "sharded" if route == "sharded" else "single"
+        return label, route, tag
+
+    def _note_route(self, label: str) -> None:
+        self._routes[label] = self._routes.get(label, 0) + 1
+        # the decision record's taken route IS this counter's label, so
+        # ledger counts and queue_snapshot routes reconcile to the unit
+        declib.note_taken(label)
+
+    def _verify(
+        self,
+        items: List[Item],
+        reason: str,
+        origins: Optional[List[Tuple[int, Optional[str], Optional[int]]]]
+        = None,
+    ) -> Tuple[List[bool], str]:
+        """Returns (verdict mask, wire-route label). The label is the
+        ledger key for demux attribution: "cpu" for host dispatches,
+        "sharded"/"indexed"/"single" mirroring _note_route's ladder."""
+        label, route, router = self._route(len(items), items)
+        self._note_route(label)
+        declib.note_router(router)
+        self._router_last = router
+        wire_route = (
+            label if label in ("cpu", "sharded", "indexed") else "single"
+        )
+        if label == "cpu" and self.spec.name != "cpu":
+            # the priced argmin chose the host rung for a device spec
+            # (small flush under the transfer floor): dispatch straight
+            # on the ground truth — no supervisor round-trip to lose
+            return self._cpu_ground_truth(items), "cpu"
+        if self._supervisor is not None:
+            # supervised path: watchdog, circuit breaker, retry/hedge
+            # ladder, and corruption audit live in crypto/supervisor.py —
+            # it never raises for a device failure (CPU re-verify is
+            # built in); origins let its triage attribute bad signatures
+            if route is not None:
+                return self._supervisor.verify_items(
+                    items, reason=reason, origins=origins, route=route
+                ), wire_route
+            return self._supervisor.verify_items(
+                items, reason=reason, origins=origins
+            ), wire_route
+        try:
+            bv = new_batch_verifier(self.spec)
+            for pk, m, s in items:
+                bv.add(pk, m, s)
+            _, mask = bv.verify()
+            if len(mask) != len(items):
+                raise RuntimeError(
+                    f"backend returned {len(mask)} verdicts for "
+                    f"{len(items)} items"
+                )
+            return mask, wire_route
+        except BuildError:
+            raise  # not a device fault: the CPU never answers for it
+        except Exception as exc:  # noqa: BLE001 - device plane died mid-flight
+            self.metrics.cpu_fallbacks.add()
+            declib.note_event("cpu_fallback", final="cpu")
+            self.logger.error(
+                "verify dispatch failed; falling back to CPU",
+                err=repr(exc), n=len(items), reason=reason,
+                backend=self.spec.name,
+            )
+            return self._cpu_ground_truth(items), "cpu"
+
+    @staticmethod
+    def _cpu_ground_truth(items: Sequence[Item]) -> List[bool]:
+        with tracelib.child_of_current("cpu", n_sigs=len(items)):
+            bv = CPUBatchVerifier()
+            for pk, m, s in items:
+                bv.add(pk, m, s)
+            _, mask = bv.verify()
+            return mask

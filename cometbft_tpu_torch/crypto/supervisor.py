@@ -1,0 +1,1996 @@
+"""BackendSupervisor — the fail-safe / fail-fast / self-healing wrapper
+around the device verification plane (reference:
+cometbft_tpu/crypto/supervisor.py; the port's own copy).
+
+What the port leaves out, and what it adds:
+
+* the sharded mesh (reference ``_verify_mesh`` and
+  ``_attribute_sharded_failure``, :903-1006) waits for multi-GPU
+  (ROADMAP A.7): a ``route="sharded"`` request takes the reference's own
+  fall-through when the mesh is unavailable (:798-810), counted as a
+  sharded fallback. The per-domain partition over several fault domains
+  (``_verify_sharded``) stays;
+* the telemetry hub, the memory plane and the incident profiler are not
+  ported yet (``telemetry=None``; ROADMAP A.4/A.5): the parameters stay
+  and are used when given;
+* the spec defaults to the port's default backend, ``"gpu"`` (the
+  reference's to ``CMT_CRYPTO_BACKEND`` or ``"cpu"``), and the
+  supervisor prepares its spec at construction (``batch.prepare_backend``:
+  one verifier, and every kernel library built when it verifies on a
+  card, where the reference joins its AOT warm boot), so a ``"gpu"``
+  supervisor raises there when there is no card or a kernel does not
+  build, instead of serving every batch from the CPU;
+* two lane caps, sized for the port's CPU ground truth, pure Python at
+  about 3.8 ms an Ed25519 lane on the H100 host (PERF.md): a dispatch
+  of more than ``HEDGE_MAX_LANES`` (256) lanes is never hedged, since a
+  CPU side that needs seconds cannot beat a device that is merely late
+  and would hold the interpreter lock all that time; the background
+  audit of a batch of more than ``AUDIT_MAX_LANES`` (256) lanes
+  re-verifies a random sample of that many lanes. The synchronous
+  audit, which decides what is released, always checks the whole batch;
+* a ``build.BuildError`` met later (a source changed under a running
+  node) is raised to the caller from the dispatch, the indexed route and
+  triage, never classified as a device fault or answered from the CPU;
+* ``classify_device_error`` also reads CUDA's spellings: "CUDA out of
+  memory" (``torch.cuda.OutOfMemoryError``) and the runtime's "out of
+  memory" are OOM; a sticky error ("an illegal memory access was
+  encountered", "unspecified launch failure", a device-side assert)
+  corrupts the CUDA context and is persistent whatever else the text
+  says;
+* every batch whose released verdicts came from the CPU instead of the
+  device (breaker open, watchdog, failure, a hedge the CPU won, an audit
+  mismatch) is counted in ``verify_supervisor_cpu_verdicts`` and logged:
+  the CPU ground truth is never a quiet fallback.
+
+Routing consensus-critical signature verification through a device
+(the whole point of this framework) turns a wedged, dying, or
+silently-wrong device plane into a consensus-liveness and -safety
+hazard — exactly the failure class the committee-based-consensus
+verification literature flags when verification moves off the CPU hot
+path (arXiv:2302.00418, arXiv:2112.02229). Before this module, the only
+protection was a one-shot try/except CPU fallback in crypto/scheduler.py:
+a hung dispatch blocked the flush worker forever, a flapping backend
+re-failed every batch, and a kernel returning wrong verdicts without
+raising was never detected.
+
+The supervisor wraps ANY crypto Backend (crypto/batch.py) and adds:
+
+* **dispatch watchdog** — every device dispatch runs in a worker thread
+  under `[crypto] dispatch_timeout_ms` (env ``CBFT_DISPATCH_TIMEOUT_MS``).
+  A wedged call is abandoned to a zombie thread — which exits at the next
+  chunk boundary via mesh.cancel_scope rather than enqueueing more device
+  work — the batch re-verifies on CPU, and the incident opens the breaker.
+
+* **circuit breaker** — HEALTHY → DEGRADED → BROKEN. `breaker_threshold`
+  consecutive dispatch failures (or ANY watchdog trip / audit mismatch)
+  opens the breaker: traffic routes straight to the CPU ground truth with
+  zero added latency (no thread spawn, no timeout wait). Exponential-
+  backoff **canary probes** (a known-good signed batch) then re-admit the
+  device once it proves healthy again.
+
+* **silent-corruption audit** — `[crypto] audit_pct` percent of device
+  batches are re-verified on CPU; any verdict disagreement immediately
+  breaks the circuit and bumps ``verify_supervisor_audit_mismatches``, so
+  a miscompiled kernel cannot keep silently accepting bad commits. With
+  ``audit_sync`` (env ``CBFT_AUDIT_SYNC=1``) the sampled batches are
+  checked BEFORE their verdicts are released and the CPU verdict wins on
+  disagreement — at 100 % this makes the device a pure accelerator with
+  CPU confirmation (the chaos soak's no-wrong-verdict-ever mode); the
+  default background mode bounds exposure to the sampling window instead.
+
+Between "healthy" and "broken" sits the **adaptive degradation ladder**
+(retry → hedge → chunk-shrink → breaker → CPU), the graceful-degradation
+shapes that bound tail latency in inference-serving stacks applied to
+the verify plane:
+
+* **transient retry** — device exceptions are classified
+  (``classify_device_error``): a transient device or link error is retried
+  once with jittered backoff (``[crypto] retry_ms`` / ``CBFT_RETRY_MS``)
+  before any breaker strike; a RESOURCE_EXHAUSTED halves the effective
+  dispatch chunk cap (mesh.shrink_chunk_cap) and retries at the smaller
+  size, and the cap recovers one doubling per ``[crypto]
+  chunk_recover_n`` clean dispatches (hysteresis); only persistent
+  errors strike the breaker.
+
+* **hedged verification** — an EWMA latency model per batch-size bucket
+  (fed by the same timings the device trace spans record) predicts each
+  dispatch's p99. When a dispatch overruns ``predicted p99 ×
+  [crypto] hedge_pct / 100`` (``CBFT_HEDGE_PCT``; 0 disables), the CPU
+  verifier launches IN PARALLEL and the first finisher wins (same mask
+  semantics); the loser is audited for divergence when it completes. The
+  fixed dispatch_timeout_ms becomes the last-resort bound instead of the
+  common-case tail.
+
+* **failed-batch triage** — a mixed verdict mask is never taken at lane
+  granularity on faith: the suspect (claimed-bad) lanes are re-verified
+  on device by segment bisection (≤ ⌈log₂ n⌉ + 1 device passes,
+  aggregate per segment — an all-clean re-check clears a segment, a
+  failing one splits), and the surviving convictions are confirmed on
+  the CPU ground truth (k lanes, not the whole batch). A conviction the
+  CPU overturns is corruption: it counts as an audit mismatch and trips
+  the breaker. Offenders are attributed to the submitting subsystem /
+  block height via the scheduler's demux (``origins``).
+
+Everything the supervisor decides is observable as ``verify_supervisor_*``
+metrics: a state gauge, breaker trips, canary probes, audits, audit
+mismatches, watchdog kills, retries by class, hedge fires/wins/
+divergence, the effective chunk cap, and triage runs/passes/offenders.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import os
+import random
+import threading
+import time
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+
+from cometbft_tpu_torch.crypto import PubKey, decisions as declib
+from cometbft_tpu_torch.crypto.batch import (
+    Backend,
+    BackendSpec,
+    BatchVerifier,
+    CPUBatchVerifier,
+    backend_device,
+    default_backend,
+    new_batch_verifier,
+    prepare_backend,
+    unwrap_backend,
+)
+from cometbft_tpu_torch.crypto.cuda.build import BuildError
+from cometbft_tpu_torch.libs import trace as tracelib
+from cometbft_tpu_torch.libs.log import Logger, new_nop_logger
+from cometbft_tpu_torch.libs.metrics import Registry
+
+SUBSYSTEM = "verify_supervisor"
+
+HEALTHY = "healthy"
+DEGRADED = "degraded"
+BROKEN = "broken"
+_STATE_CODE = {HEALTHY: 0, DEGRADED: 1, BROKEN: 2}
+
+DEFAULT_DISPATCH_TIMEOUT_MS = 60_000
+DEFAULT_BREAKER_THRESHOLD = 3
+DEFAULT_AUDIT_PCT = 5
+DEFAULT_PROBE_BASE_MS = 1_000
+DEFAULT_PROBE_MAX_MS = 60_000
+DEFAULT_HEDGE_PCT = 200
+DEFAULT_RETRY_MS = 25
+DEFAULT_CHUNK_RECOVER_N = 32
+# about a second of the pure-Python ground truth (3.8 ms a lane)
+HEDGE_MAX_LANES = 256
+AUDIT_MAX_LANES = 256
+_AUDIT_QUEUE_CAP = 64  # batches; beyond this, drop-and-count (see audit_drops)
+
+Item = Tuple[PubKey, bytes, bytes]
+
+# origin of one coalesced sub-request: (n_items, subsystem, height) —
+# the scheduler's demux passes these so triage can attribute offending
+# signatures to the subsystem/block that submitted them
+Origin = Tuple[int, Optional[str], Optional[int]]
+
+
+class WatchdogTimeout(RuntimeError):
+    """A device dispatch exceeded dispatch_timeout_ms and was abandoned."""
+
+
+# --- device-error classification --------------------------------------------
+# The retry ladder needs to tell a flapping link from an exhausted card
+# memory from a genuinely broken plane. The reference reads XLA's
+# gRPC-style status in the error text; the port's kernels raise
+# RuntimeErrors carrying the CUDA runtime's text (build.check) and torch
+# raises torch.cuda.OutOfMemoryError ("CUDA out of memory"). A wrapper
+# may chain the original, so classification scans the whole
+# __cause__/__context__ chain.
+
+TRANSIENT = "transient"
+OOM = "oom"
+PERSISTENT = "persistent"
+
+_OOM_MARKERS = (
+    "resource_exhausted",
+    "resource exhausted",
+    "out of memory",
+    "hbm",
+    "allocation failure",
+    "oom ",  # "oom killed", "oom while allocating" — NOT bare "oom",
+    # which substring-matches innocents like "boom"/"zoomed"
+)
+# CUDA errors that leave the context unusable: every later call fails too
+_STICKY_MARKERS = (
+    "illegal memory access",
+    "illegal address",
+    "unspecified launch failure",
+    "misaligned address",
+    "device-side assert",
+    "illegal instruction",
+    "hardware stack error",
+)
+_TRANSIENT_MARKERS = (
+    "unavailable",
+    "deadline_exceeded",
+    "deadline exceeded",
+    "aborted",
+    "cancelled by runtime",
+    "connection reset",
+    "broken pipe",
+    "socket closed",
+    "tunnel",
+    "transient",
+    "temporarily",
+    "try again",
+)
+
+
+def classify_device_error(exc: BaseException) -> str:
+    """→ "oom" | "transient" | "persistent" for a device-plane exception
+    (a sticky CUDA error first: it is persistent whatever else its text
+    says; then OOM: a RESOURCE_EXHAUSTED often also mentions retry)."""
+    texts = []
+    seen = set()
+    cur: Optional[BaseException] = exc
+    while cur is not None and id(cur) not in seen:
+        seen.add(id(cur))
+        texts.append(f"{type(cur).__name__}: {cur}".lower())
+        cur = cur.__cause__ or cur.__context__
+    blob = " | ".join(texts)
+    if any(m in blob for m in _STICKY_MARKERS):
+        return PERSISTENT
+    if any(m in blob for m in _OOM_MARKERS):
+        return OOM
+    if any(m in blob for m in _TRANSIENT_MARKERS):
+        return TRANSIENT
+    return PERSISTENT
+
+
+class LatencyModel:
+    """EWMA latency + mean-absolute-deviation per power-of-two batch-size
+    bucket, fed from the supervised device dispatch timings (the same
+    wall-clock the ``device`` trace spans record). ``predict_p99``
+    approximates the tail as mean + 4·deviation — cheap, monotone in
+    both, and good enough to decide "this dispatch is already an
+    outlier, hedge it"."""
+
+    ALPHA = 0.2
+    MIN_SAMPLES = 3
+
+    def __init__(self):
+        self._mtx = threading.Lock()
+        # bucket (bit_length of n) -> [n_samples, ewma_mean_s, ewma_dev_s]
+        self._buckets: Dict[int, List[float]] = {}
+
+    @staticmethod
+    def _bucket(n_sigs: int) -> int:
+        return max(1, int(n_sigs)).bit_length()
+
+    def observe(self, n_sigs: int, seconds: float) -> None:
+        with self._mtx:
+            b = self._buckets.setdefault(self._bucket(n_sigs), [0, 0.0, 0.0])
+            b[0] += 1
+            if b[0] == 1:
+                b[1] = seconds
+                return
+            err = seconds - b[1]
+            b[1] += self.ALPHA * err
+            b[2] += self.ALPHA * (abs(err) - b[2])
+
+    def predict_p99(self, n_sigs: int) -> Optional[float]:
+        """Predicted tail latency for a batch of ``n_sigs``, or None
+        while the bucket (or any neighbor) is cold."""
+        want = self._bucket(n_sigs)
+        with self._mtx:
+            warm = {
+                k: v for k, v in self._buckets.items()
+                if v[0] >= self.MIN_SAMPLES
+            }
+            if not warm:
+                return None
+            # exact bucket, else the nearest warm one (a 2x-off bucket
+            # still beats no prediction — the hedge threshold is a
+            # multiplier away anyway)
+            key = want if want in warm else min(
+                warm, key=lambda k: abs(k - want)
+            )
+            n, mean, dev = warm[key]
+            return mean + 4.0 * dev
+
+    def snapshot(self) -> Dict[str, Dict[str, object]]:
+        """Per-bucket EWMA state for the telemetry snapshot and
+        verify_top — the hedge decision inputs, inspectable from
+        outside. Keys are the bucket's max batch size (2^b − 1);
+        p99_ms is None while the bucket is cold."""
+        with self._mtx:
+            out: Dict[str, Dict[str, object]] = {}
+            for bucket, (n, mean, dev) in sorted(self._buckets.items()):
+                out[str((1 << bucket) - 1)] = {
+                    "n": int(n),
+                    "ewma_ms": round(mean * 1e3, 3),
+                    "p99_ms": (
+                        round((mean + 4.0 * dev) * 1e3, 3)
+                        if n >= self.MIN_SAMPLES else None
+                    ),
+                }
+            return out
+
+
+class _DeviceCall:
+    """Handle for one in-flight watchdog-abandonable device dispatch:
+    the worker signals ``done`` after writing ``box["mask"]`` or
+    ``box["exc"]``; the owner may set ``cancel`` to abandon it at the
+    next chunk boundary."""
+
+    __slots__ = ("done", "cancel", "box", "span", "t0", "n")
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.cancel = threading.Event()
+        self.box: dict = {}
+        self.span = None
+        self.t0 = 0.0
+        self.n = 0
+
+
+class _Domain:
+    """Per-fault-domain supervision record: the breaker machine, probe
+    backoff, and latency model that used to be node-global, now one per
+    topology.DeviceHandle. Mutated only under the supervisor's lock
+    (except latency_model, which locks itself)."""
+
+    __slots__ = (
+        "handle", "state", "consecutive_failures", "backoff_s",
+        "next_probe_at", "probing", "latency_model",
+    )
+
+    def __init__(self, handle, probe_base_s: float):
+        self.handle = handle
+        self.state = HEALTHY
+        self.consecutive_failures = 0
+        self.backoff_s = probe_base_s
+        self.next_probe_at = 0.0
+        self.probing = False
+        self.latency_model = LatencyModel()
+
+
+# a batch shard below this many signatures is not worth a separate
+# device dispatch (pad + launch overhead dominates); small batches stay
+# on fewer domains
+_MIN_SHARD = 32
+
+
+def _slice_origins(
+    origins: Optional[Sequence[Origin]], start: int, end: int
+) -> Optional[List[Origin]]:
+    """The sub-sequence of the scheduler's demux shape covering item
+    positions [start:end) — so a sharded batch still attributes triaged
+    offenders to the right submitting subsystem."""
+    if origins is None:
+        return None
+    out: List[Origin] = []
+    pos = 0
+    for count, subsystem, height in origins:
+        s, e = max(start, pos), min(end, pos + count)
+        if e > s:
+            out.append((e - s, subsystem, height))
+        pos += count
+        if pos >= end:
+            break
+    return out
+
+
+def _knob(env: str, config_value: Optional[int], default: int) -> int:
+    """Same precedence shape as every [crypto] knob (crypto/batch.py
+    ed25519_routing_floor): env operator override > config > default."""
+    raw = os.environ.get(env)
+    if raw is not None:
+        return int(raw)
+    if config_value is not None:
+        return int(config_value)
+    return default
+
+
+def dispatch_timeout_ms_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_DISPATCH_TIMEOUT_MS", config_value,
+                 DEFAULT_DISPATCH_TIMEOUT_MS)
+
+
+def breaker_threshold_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_BREAKER_THRESHOLD", config_value,
+                 DEFAULT_BREAKER_THRESHOLD)
+
+
+def audit_pct_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_AUDIT_PCT", config_value, DEFAULT_AUDIT_PCT)
+
+
+def hedge_pct_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_HEDGE_PCT", config_value, DEFAULT_HEDGE_PCT)
+
+
+def retry_ms_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_RETRY_MS", config_value, DEFAULT_RETRY_MS)
+
+
+def chunk_recover_n_default(config_value: Optional[int] = None) -> int:
+    return _knob("CBFT_CHUNK_RECOVER_N", config_value,
+                 DEFAULT_CHUNK_RECOVER_N)
+
+
+class Metrics:
+    """Supervisor observability (libs/metrics.py instruments), exported
+    as verify_supervisor_* through the node's Prometheus registry."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry if registry is not None else Registry()
+        self.state = r.gauge(
+            SUBSYSTEM, "state",
+            "Circuit breaker state: 0=healthy, 1=degraded, 2=broken.",
+        )
+        self.trips = r.counter(
+            SUBSYSTEM, "trips",
+            "Circuit-breaker opens, by cause (failures|watchdog|audit|probe).",
+        )
+        self.probes = r.counter(
+            SUBSYSTEM, "probes",
+            "Canary probe dispatches, by outcome (ok|fail).",
+        )
+        self.audits = r.counter(
+            SUBSYSTEM, "audits",
+            "Device batches re-verified on CPU by the corruption audit.",
+        )
+        self.audit_mismatches = r.counter(
+            SUBSYSTEM, "audit_mismatches",
+            "Audited batches whose device verdicts disagreed with the CPU "
+            "ground truth — each one breaks the circuit (safety counter).",
+        )
+        self.audit_drops = r.counter(
+            SUBSYSTEM, "audit_drops",
+            "Sampled batches dropped because the background audit queue "
+            "was full.",
+        )
+        self.watchdog_kills = r.counter(
+            SUBSYSTEM, "watchdog_kills",
+            "Device dispatches abandoned to a zombie thread after "
+            "exceeding dispatch_timeout_ms.",
+        )
+        self.failures = r.counter(
+            SUBSYSTEM, "failures",
+            "Supervised device dispatches that raised (excl. watchdog).",
+        )
+        self.device_dispatches = r.counter(
+            SUBSYSTEM, "device_dispatches",
+            "Batches dispatched to the supervised backend.",
+        )
+        self.cpu_routed = r.counter(
+            SUBSYSTEM, "cpu_routed",
+            "Batches routed straight to CPU because the breaker was open.",
+        )
+        self.cpu_verdicts = r.counter(
+            SUBSYSTEM, "cpu_verdicts",
+            "Batches whose released verdicts came from the CPU ground "
+            "truth instead of the device (breaker open, watchdog, failure, "
+            "a hedge the CPU won, audit mismatch).",
+        )
+        # -- degradation-ladder rungs (retry → hedge → shrink → triage) --
+        self.retries = r.counter(
+            SUBSYSTEM, "retries",
+            "Device dispatch retries before any breaker strike, by error "
+            "class (transient|oom).",
+        )
+        self.hedge_fires = r.counter(
+            SUBSYSTEM, "hedge_fires",
+            "Dispatches that overran their predicted-latency hedge "
+            "threshold and launched the parallel CPU verifier.",
+        )
+        self.hedge_wins = r.counter(
+            SUBSYSTEM, "hedge_wins",
+            "Hedged dispatches by winner (cpu|device) — first finisher's "
+            "verdicts are released.",
+        )
+        self.hedge_divergence = r.counter(
+            SUBSYSTEM, "hedge_divergence",
+            "Hedged dispatches whose loser disagreed with the released "
+            "verdicts once it completed (each one trips the breaker).",
+        )
+        self.chunk_cap = r.gauge(
+            SUBSYSTEM, "chunk_cap",
+            "Effective device dispatch chunk cap after OOM-adaptive "
+            "shrinking (mesh.chunk_cap).",
+        )
+        self.chunk_shrinks = r.counter(
+            SUBSYSTEM, "chunk_shrinks",
+            "Chunk-cap halvings after a RESOURCE_EXHAUSTED dispatch.",
+        )
+        self.chunk_recoveries = r.counter(
+            SUBSYSTEM, "chunk_recoveries",
+            "Chunk-cap doublings recovered after chunk_recover_n "
+            "consecutive clean dispatches.",
+        )
+        self.triage_runs = r.counter(
+            SUBSYSTEM, "triage_runs",
+            "Mixed-verdict batches localized by device bisection instead "
+            "of a wholesale CPU re-verify.",
+        )
+        self.triage_passes = r.counter(
+            SUBSYSTEM, "triage_passes",
+            "Device bisection passes across all triage runs.",
+        )
+        self.triage_offenders = r.counter(
+            SUBSYSTEM, "triage_offenders",
+            "Bad signatures localized by triage, by submitting subsystem.",
+        )
+        self.triage_divergence = r.counter(
+            SUBSYSTEM, "triage_divergence",
+            "Triage convictions the CPU ground truth overturned (device "
+            "called a good signature bad — corruption; trips the breaker).",
+        )
+        self.triage_cpu_fallbacks = r.counter(
+            SUBSYSTEM, "triage_cpu_fallbacks",
+            "Triage runs whose device passes failed and fell back to CPU "
+            "verification of the remaining suspect lanes.",
+        )
+        # -- per-fault-domain instruments (device= label) ----------------
+        # existing instruments keep their label shapes (a labeled child
+        # never feeds the parent series in libs/metrics.py, so relabeling
+        # them would zero every unlabeled consumer); per-device state
+        # gets its own family instead.
+        self.breaker_state = r.gauge(
+            SUBSYSTEM, "breaker_state",
+            "Per-device circuit breaker state (device= label): "
+            "0=healthy, 1=degraded, 2=broken.",
+        )
+        self.quarantines = r.counter(
+            SUBSYSTEM, "quarantines",
+            "Fault domains quarantined (per-device breaker opened while "
+            "other devices stayed in service), by device.",
+        )
+        self.readmissions = r.counter(
+            SUBSYSTEM, "readmissions",
+            "Quarantined fault domains re-admitted by their own canary "
+            "probe, by device.",
+        )
+        self.redistributions = r.counter(
+            SUBSYSTEM, "redistributions",
+            "Batches whose quarantined-device share of the batch axis was "
+            "redistributed to the healthy devices.",
+        )
+        self.sharded_dispatches = r.counter(
+            SUBSYSTEM, "sharded_dispatches",
+            "Megabatches dispatched as ONE multi-device sharded program "
+            "over the healthy mesh (routing mode 'sharded').",
+        )
+        self.sharded_reslices = r.counter(
+            SUBSYSTEM, "sharded_reslices",
+            "Sharded mesh dispatches retried on a re-sliced (shrunken) "
+            "mesh after a failure was attributed to one fault domain.",
+        )
+        self.sharded_fallbacks = r.counter(
+            SUBSYSTEM, "sharded_fallbacks",
+            "Sharded-routed batches that fell back to the per-domain "
+            "partition path because the mesh was or became unavailable.",
+        )
+        self.indexed_dispatches = r.counter(
+            SUBSYSTEM, "indexed_dispatches",
+            "Batches dispatched on the keystore's indexed steady-state "
+            "wire (resident pubkey table + int32 index vector, "
+            "100 B/lane; routing mode 'indexed').",
+        )
+        self.indexed_fallbacks = r.counter(
+            SUBSYSTEM, "indexed_fallbacks",
+            "Indexed-routed batches that fell back to the per-domain "
+            "partition path because keystore coverage was lost between "
+            "the routing decision and the dispatch (or the dispatch "
+            "raised).",
+        )
+
+    @classmethod
+    def nop(cls) -> "Metrics":
+        return cls(None)
+
+
+class BackendSupervisor:
+    """Supervised verify entry: ``verify_items(items) -> mask`` with the
+    same verdict semantics as BatchVerifier.verify()'s mask, guaranteed
+    to return (never hang) and never to lose a batch — the CPU ground
+    truth backs every failure path.
+
+    Duck-typed like the VerifyScheduler so it travels the same opaque
+    backend parameter: anything exposing ``verify_items`` + ``spec`` is
+    unwrapped by crypto/batch.py, and ``new_batch_verifier(supervisor)``
+    returns a SupervisedBatchVerifier adapter.
+    """
+
+    def __init__(
+        self,
+        spec: Backend = None,
+        dispatch_timeout_ms: Optional[int] = None,
+        breaker_threshold: Optional[int] = None,
+        audit_pct: Optional[int] = None,
+        audit_sync: Optional[bool] = None,
+        probe_base_ms: Optional[int] = None,
+        probe_max_ms: Optional[int] = None,
+        hedge_pct: Optional[int] = None,
+        retry_ms: Optional[int] = None,
+        chunk_recover_n: Optional[int] = None,
+        metrics: Optional[Metrics] = None,
+        logger: Optional[Logger] = None,
+        tracer: Optional[tracelib.Tracer] = None,
+        topology=None,
+        telemetry=None,
+        memory_plane=None,
+        profiler=None,
+    ):
+        spec = unwrap_backend(spec)
+        if not isinstance(spec, BackendSpec):
+            spec = BackendSpec(name=spec or default_backend())
+        self.spec = spec
+        if spec.name != "cpu":
+            # "gpu" without a card, or with a kernel that does not build,
+            # raises here, before anything is queued or any verdict is
+            # served from the CPU
+            prepare_backend(spec)
+        self._timeout_s = dispatch_timeout_ms_default(dispatch_timeout_ms) / 1e3
+        self._threshold = max(1, breaker_threshold_default(breaker_threshold))
+        self._audit_pct = min(100, max(0, audit_pct_default(audit_pct)))
+        if audit_sync is None:
+            audit_sync = os.environ.get("CBFT_AUDIT_SYNC", "0") == "1"
+        self._audit_sync = audit_sync
+        self._probe_base_s = _knob(
+            "CBFT_PROBE_BASE_MS", probe_base_ms, DEFAULT_PROBE_BASE_MS
+        ) / 1e3
+        self._probe_max_s = _knob(
+            "CBFT_PROBE_MAX_MS", probe_max_ms, DEFAULT_PROBE_MAX_MS
+        ) / 1e3
+        self._hedge_pct = max(0, hedge_pct_default(hedge_pct))
+        self._retry_s = max(1, retry_ms_default(retry_ms)) / 1e3
+        self._chunk_recover_n = max(1, chunk_recover_n_default(chunk_recover_n))
+        self.metrics = metrics if metrics is not None else Metrics.nop()
+        self.logger = logger or new_nop_logger()
+        self._tracer = tracer if tracer is not None else tracelib.default_tracer()
+
+        # supervision state is sharded over the device topology: one
+        # _Domain (breaker / probe backoff / latency model) per fault
+        # domain. Default = the process topology, whose device 0 the
+        # mesh module's legacy chunk-cap globals shim onto — so
+        # single-device behavior is bit-identical to the pre-topology
+        # supervisor.
+        if topology is None:
+            from cometbft_tpu_torch.crypto.cuda import topology as topolib
+
+            topology = topolib.default_topology()
+        self.topology = topology
+        self._lock = threading.Lock()
+        self._domains = [
+            _Domain(h, self._probe_base_s) for h in topology
+        ]
+        for dom in self._domains:
+            self.metrics.breaker_state.with_labels(
+                device=dom.handle.label
+            ).set(_STATE_CODE[HEALTHY])
+        self._rng = random.Random()
+
+        self._audit_cond = threading.Condition()
+        self._audit_queue: Deque[Tuple[_Domain, List[Item], List[bool]]] = (
+            collections.deque()
+        )
+        self._audit_worker: Optional[threading.Thread] = None
+        self._stopped = False
+        # in-flight background probe/canary threads, joined by stop() so
+        # a daemon probe can never touch a torn-down backend at shutdown
+        self._bg_threads: List[threading.Thread] = []
+
+        self._canary: Optional[List[Item]] = None
+        if self.spec.name != "cpu":
+            self._update_chunk_cap_gauge()
+
+        # the capacity-telemetry hub (crypto/telemetry.py): every
+        # completed device call reports its busy interval (the windowed
+        # duty-cycle numerator), and the hub's headroom estimator scales
+        # by this supervisor's healthy_capacity_fraction. None = free.
+        self._telemetry = telemetry
+        if telemetry is not None:
+            telemetry.register_source("supervisor", self.capacity_snapshot)
+            telemetry.set_capacity_fraction(self.healthy_capacity_fraction)
+
+        # the device-memory plane (ROADMAP A.4) is the
+        # PROACTIVE rung ahead of the reactive OOM shrink: the mesh
+        # chunk loop consults its pre-dispatch guard, and the
+        # capacity snapshot surfaces its per-device guard caps. The
+        # incident profiler (libs/profiling.py) fires a bounded
+        # one-shot capture when a breaker trips. Both optional.
+        self._memory_plane = memory_plane
+        self._profiler = profiler
+
+        # aggregate-state transition listeners (QoS brownout, future
+        # sidecar admission): invoked under self._lock from
+        # _set_state_locked, so they must be fast and never call back
+        # into the supervisor
+        self._state_listeners: List[Callable[[str], None]] = []
+        self._last_aggregate_state = HEALTHY
+
+    # -- knob introspection --------------------------------------------------
+
+    @property
+    def dispatch_timeout_ms(self) -> int:
+        return int(self._timeout_s * 1e3)
+
+    @property
+    def breaker_threshold(self) -> int:
+        return self._threshold
+
+    @property
+    def audit_pct(self) -> int:
+        return self._audit_pct
+
+    @property
+    def hedge_pct(self) -> int:
+        return self._hedge_pct
+
+    @property
+    def retry_ms(self) -> int:
+        return int(self._retry_s * 1e3)
+
+    @property
+    def chunk_recover_n(self) -> int:
+        return self._chunk_recover_n
+
+    @property
+    def latency_model(self) -> LatencyModel:
+        """Back-compat: the single-device supervisor's latency model is
+        fault domain 0's (multi-device callers use per-domain models)."""
+        return self._domains[0].latency_model
+
+    @property
+    def _backoff_s(self) -> float:
+        """Back-compat introspection: domain 0's probe backoff."""
+        return self._domains[0].backoff_s
+
+    def state(self) -> str:
+        """Aggregate node state: BROKEN only when EVERY fault domain is
+        broken (that is the only condition that routes the node to CPU);
+        DEGRADED while any domain is degraded or quarantined; HEALTHY
+        otherwise. With one domain this is exactly the old breaker."""
+        with self._lock:
+            return self._aggregate_state_locked()
+
+    def add_state_listener(self, fn: Callable[[str], None]) -> None:
+        """Subscribe to aggregate-state TRANSITIONS (healthy/degraded/
+        broken). The listener runs under the supervisor lock at the
+        moment of the breaker flip — it must be fast, never raise (a
+        raise is swallowed), and never call back into the supervisor.
+        The QoS brownout controller (crypto/qos.py) is the canonical
+        subscriber: DEGRADED/BROKEN is overload evidence before the SLO
+        window catches up."""
+        with self._lock:
+            self._state_listeners.append(fn)
+
+    def _aggregate_state_locked(self) -> str:
+        states = [d.state for d in self._domains]
+        if all(s == BROKEN for s in states):
+            return BROKEN
+        if any(s != HEALTHY for s in states):
+            return DEGRADED
+        return HEALTHY
+
+    def device_states(self) -> Dict[str, str]:
+        """Per-fault-domain breaker state, keyed by device label — the
+        flight-recorder dump and /debug consumers read this."""
+        with self._lock:
+            return {d.handle.label: d.state for d in self._domains}
+
+    def capacity_snapshot(self) -> Dict[str, object]:
+        """Per-domain health for the capacity plane (/debug/verify):
+        breaker states, effective chunk caps (post-OOM-shrink), and the
+        aggregate healthy fraction — what the headroom estimate and the
+        future sidecar's admission control read."""
+        default = self.spec.max_chunk or 8192
+        with self._lock:
+            handles = [
+                (d.handle, d.state, d.consecutive_failures, d.latency_model)
+                for d in self._domains
+            ]
+        domains = {}
+        for handle, state, failures, lm in handles:
+            try:
+                cap = handle.chunk_cap(default, 64)
+            except ValueError:  # malformed CBFT_TPU_MAX_CHUNK
+                cap = None
+            domains[handle.label] = {
+                "state": state,
+                "failures": failures,
+                "shrink_levels": handle.chunk_shrink_levels(),
+                "capacity_fraction": handle.capacity_fraction(),
+                "chunk_cap": cap,
+                "memory_guard_cap": handle.memory_guard_cap(),
+                # the hedge decision inputs (satellite of the memory
+                # plane PR): per-bucket EWMA/p99 predictions
+                "latency_model": lm.snapshot(),
+            }
+        return {
+            "state": self.state(),
+            "backend": self.spec.name,
+            "dispatch_timeout_ms": self.dispatch_timeout_ms,
+            "healthy_capacity_fraction": self.healthy_capacity_fraction(),
+            "domains": domains,
+        }
+
+    def healthy_capacity_fraction(self) -> float:
+        """Fraction of nominal device capacity currently in service:
+        quarantined (BROKEN) domains contribute 0, OOM-shrunk domains
+        their shrunken share. The scheduler scales its lane budget by
+        this so coalesced flushes target what the surviving devices can
+        actually absorb."""
+        with self._lock:
+            n = len(self._domains)
+            live = sum(
+                d.handle.capacity_fraction()
+                for d in self._domains if d.state != BROKEN
+            )
+        return live / max(1, n)
+
+    # -- the supervised verify entry -----------------------------------------
+
+    def verify_items(
+        self,
+        items: List[Item],
+        reason: str = "direct",
+        origins: Optional[Sequence[Origin]] = None,
+        route: Optional[str] = None,
+    ) -> List[bool]:
+        """Verify ``items`` through the supervised backend, falling back
+        to the CPU ground truth on any failure. Always returns a full
+        mask; never raises for device-plane reasons; bounded in time by
+        dispatch_timeout_ms + the CPU verify.
+
+        ``origins`` (optional) is the scheduler's demux shape — one
+        ``(n_items, subsystem, height)`` per coalesced request, in item
+        order — used only to attribute triaged bad signatures to the
+        subsystem/block that submitted them (metrics + logs).
+
+        ``route`` (optional) is the scheduler's routing decision for
+        this flush: "sharded" runs the whole batch as ONE multi-device
+        program over the healthy mesh (mesh.dispatch_sharded), "single"
+        pins the dispatch to one chip, None keeps the legacy per-domain
+        partition. A sharded route degrades to the partition path (and
+        ultimately CPU) whenever the mesh shrinks below two devices."""
+        if not items:
+            return []
+        if self.spec.name == "cpu":
+            # the wrapped backend IS the ground truth — nothing to
+            # supervise, watch, or audit against
+            return self._cpu_verify(items)
+        state = self.state()
+        span = self._tracer.span(
+            "supervise", state=state, n_sigs=len(items), reason=reason,
+            route=route or "auto",
+        )
+        with tracelib.use(span):
+            if route == "sharded":
+                # no multi-card mesh in the port yet (ROADMAP A.7;
+                # mesh.sharded_available is False): the reference's
+                # fall-through when its mesh is unavailable, to the
+                # per-domain partition over whatever still serves
+                self.metrics.sharded_fallbacks.add()
+                # attribute the divergence back to the originating flush
+                # decision (the scheduler parked it on this thread)
+                declib.note_event("sharded_fallback", final="single")
+                route = None
+            if route == "indexed":
+                mask = self._verify_indexed(items)
+                if mask is not None:
+                    span.end(outcome="indexed")
+                    return mask
+                # coverage lost (eviction/rotation raced the routing
+                # decision) or the dispatch raised: the keyed partition
+                # path serves the flush — verdicts never depend on the
+                # optimization being available
+                self.metrics.indexed_fallbacks.add()
+                declib.note_event("indexed_fallback", final="single")
+                route = None
+            with self._lock:
+                healthy = [d for d in self._domains if d.state != BROKEN]
+                n_domains = len(self._domains)
+            if not healthy:
+                # EVERY fault domain is quarantined — only now does the
+                # node fall back to CPU. Fail fast: zero added latency
+                # while the breakers are open.
+                self._maybe_probe_async()
+                self.metrics.cpu_routed.add()
+                self.metrics.cpu_verdicts.add()
+                self.logger.error(
+                    "every fault domain is broken; batch verified on CPU",
+                    n=len(items), reason=reason, backend=self.spec.name,
+                )
+                declib.note_event("cpu_routed", final="cpu")
+                mask = self._cpu_verify(items)
+                span.end(outcome="cpu_routed")
+                return mask
+            if len(healthy) < n_domains:
+                # partial quarantine: the broken devices' batch-axis
+                # share lands on the survivors, and their canaries keep
+                # probing for re-admission
+                self._maybe_probe_async()
+                self.metrics.redistributions.add()
+            shards = self._partition(len(items), healthy)
+            if len(shards) == 1:
+                dom = shards[0][0]
+                mask, outcome = self._supervise_shard(
+                    dom, items, reason, origins, route=route
+                )
+                span.end(outcome=outcome)
+                return mask
+            return self._verify_sharded(
+                span, shards, items, reason, origins,
+                n_healthy=len(healthy), route=route,
+            )
+
+    def _partition(self, n: int, healthy: List[_Domain]):
+        """Split the batch axis [0, n) into contiguous shards over the
+        healthy fault domains, weighted by each device's
+        capacity_fraction (an OOM-shrunk device takes a smaller share).
+        Small batches use fewer domains (_MIN_SHARD floor) — the pad +
+        launch overhead of a tiny shard beats any parallelism win.
+        → list of (domain, start, end), end-exclusive, covering [0, n)."""
+        use = healthy[: max(1, min(len(healthy), n // _MIN_SHARD or 1))]
+        weights = [d.handle.capacity_fraction() for d in use]
+        total = sum(weights) or float(len(use))
+        shards = []
+        start = 0
+        for i, (dom, w) in enumerate(zip(use, weights)):
+            end = n if i == len(use) - 1 else min(
+                n, start + int(round(n * w / total))
+            )
+            if end > start:
+                shards.append((dom, start, end))
+            start = end
+        return shards or [(use[0], 0, n)]
+
+    def _verify_indexed(self, items: List[Item]) -> Optional[List[bool]]:
+        """ONE indexed dispatch through the device key store
+        (keystore.verify_batch_indexed): R ‖ S ‖ h rows and an int32 row
+        index a lane against a resident validator set's key tables,
+        under fault domain 0's device scope (its card and stream).
+        Returns None when the backend does not verify on a device, the
+        store refuses (coverage lost since the routing decision) or the
+        dispatch raises (logged), so verify_items falls through to the
+        fully supervised partition path, where the fallback is counted
+        (``indexed_fallbacks``)."""
+        try:
+            from cometbft_tpu_torch.crypto.cuda import keystore, topology
+
+            device = backend_device(self.spec)
+            if device is None:
+                return None
+            with topology.device_scope(self._domains[0].handle):
+                mask = keystore.verify_batch_indexed(
+                    [pk for pk, _, _ in items],
+                    [m for _, m, _ in items],
+                    [s for _, _, s in items],
+                    device,
+                )
+        except BuildError:
+            raise  # not a device fault: the CPU never answers for it
+        except Exception as exc:  # noqa: BLE001 - fall back, never raise
+            self.logger.error(
+                "indexed dispatch failed; partition fallback",
+                err=repr(exc), n=len(items),
+            )
+            return None
+        if mask is not None:
+            self.metrics.indexed_dispatches.add()
+        return mask
+
+    def _verify_sharded(
+        self,
+        span,
+        shards,
+        items: List[Item],
+        reason: str,
+        origins: Optional[Sequence[Origin]],
+        n_healthy: int,
+        route: Optional[str] = None,
+    ) -> List[bool]:
+        """Run one shard per healthy domain — shard 0 inline on the
+        calling thread, the rest on workers that re-install the
+        supervise span so their device/cpu children parent correctly.
+        Each shard is independently supervised (watchdog, ladder,
+        triage, audit); a shard whose worker outlives even the watchdog
+        bound is served from the CPU ground truth, so the full mask is
+        always returned."""
+        results: List[Optional[List[bool]]] = [None] * len(shards)
+        outcomes: List[Optional[str]] = [None] * len(shards)
+        build_errors: List[BuildError] = []
+
+        def run_shard(i: int, dom: _Domain, start: int, end: int) -> None:
+            try:
+                with tracelib.use(span):
+                    m, oc = self._supervise_shard(
+                        dom, items[start:end], reason,
+                        _slice_origins(origins, start, end),
+                        route=route,
+                    )
+                results[i], outcomes[i] = m, oc
+            except BuildError as exc:
+                build_errors.append(exc)
+            except Exception:  # noqa: BLE001 - assembly CPU-fills the hole
+                pass
+
+        threads = []
+        for i, (dom, start, end) in enumerate(shards):
+            if i == 0:
+                continue
+            t = threading.Thread(
+                target=run_shard, args=(i, dom, start, end), daemon=True,
+                name=f"supervisor-shard-{dom.handle.label}",
+            )
+            threads.append(t)
+            t.start()
+        run_shard(0, *shards[0])
+        # every shard is bounded by its own watchdog + CPU fallback;
+        # this join bound only guards against a pathological scheduler
+        # stall, so it is generous rather than tight
+        deadline = time.monotonic() + self._timeout_s * 2.0 + 30.0
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        if build_errors:
+            span.end(error=repr(build_errors[0]))
+            raise build_errors[0]
+        mask: List[bool] = [False] * len(items)
+        for i, (dom, start, end) in enumerate(shards):
+            if results[i] is None:
+                results[i] = self._cpu_verify(items[start:end])
+                outcomes[i] = "wedged_cpu"
+            mask[start:end] = results[i]
+        span.end(
+            outcome="sharded", shards=len(shards), n_healthy=n_healthy,
+            shard_outcomes=",".join(o or "?" for o in outcomes),
+        )
+        return mask
+
+    def _supervise_shard(
+        self,
+        dom: _Domain,
+        items: List[Item],
+        reason: str,
+        origins: Optional[Sequence[Origin]],
+        route: Optional[str] = None,
+    ):
+        """The per-domain supervised verify — the full degradation
+        ladder (retry/hedge/shrink → breaker strike → CPU fallback),
+        triage, and audit for ONE fault domain's share of the batch.
+        → (mask, outcome-tag)."""
+        try:
+            mask, source = self._dispatch_adaptive(
+                dom, items, reason, route=route
+            )
+        except WatchdogTimeout as exc:
+            self.metrics.watchdog_kills.add()
+            self.metrics.cpu_verdicts.add()
+            self._trip(
+                dom, "watchdog", err=str(exc), n=len(items), reason=reason
+            )
+            declib.note_event("shard_cpu", final="cpu")
+            return self._cpu_verify(items), "watchdog_cpu"
+        except BuildError:
+            raise  # not a device fault: the CPU never answers for it
+        except Exception as exc:  # noqa: BLE001 - any backend death
+            self.metrics.cpu_verdicts.add()
+            self._note_failure(dom, exc, len(items), reason)
+            declib.note_event("shard_cpu", final="cpu")
+            return self._cpu_verify(items), "failure_cpu"
+        return self._release_shard(dom, items, mask, source, reason, origins)
+
+    def _release_shard(
+        self,
+        dom: _Domain,
+        items: List[Item],
+        mask: List[bool],
+        source: str,
+        reason: str,
+        origins: Optional[Sequence[Origin]],
+    ):
+        """Post-dispatch release path shared by the per-domain shard and
+        the whole-mesh sharded dispatch: hedge-winner short-circuit,
+        breaker bookkeeping, mixed-verdict triage, and the corruption
+        audit. → (mask, outcome-tag)."""
+        if source != "device":
+            # the CPU hedge won the race: its verdicts ARE the ground
+            # truth — nothing to audit or triage, and the device's
+            # health is judged by the loser-audit in the hedge path,
+            # not by this batch's success
+            self.metrics.cpu_verdicts.add()
+            self.logger.error(
+                "CPU hedge won the race; its verdicts released",
+                n=len(items), reason=reason, device=dom.handle.label,
+            )
+            return mask, "hedge_cpu"
+        self._note_success(dom)
+        self._note_clean_dispatch(dom)
+        if not all(mask):
+            # a mixed verdict is never released at lane granularity
+            # on device faith alone — localize and confirm
+            mask = self._triage(dom, items, mask, reason, origins)
+        if self._audit_pct > 0 and self._should_audit():
+            if self._audit_sync:
+                asp = tracelib.child_of_current(
+                    "audit", sync=True, n_sigs=len(items)
+                )
+                cpu_mask = self._cpu_verify(items)
+                self.metrics.audits.add()
+                mismatch = cpu_mask != mask
+                asp.end(mismatch=mismatch)
+                if mismatch:
+                    self.metrics.cpu_verdicts.add()
+                    self._audit_mismatch(dom, len(items))
+                    return cpu_mask, "audit_mismatch"  # truth wins, always
+            else:
+                self._enqueue_audit(dom, items, mask)
+        return mask, "device_ok"
+
+    # -- internals: the retry/hedge rungs of the ladder ----------------------
+
+    def _dispatch_adaptive(self, dom: _Domain, items: List[Item],
+                           reason: str, route: Optional[str] = None):
+        """Retry rungs: classify device errors, retry a transient once
+        with jittered backoff, halve the chunk cap and retry on OOM, and
+        hand everything else up for a breaker strike. → (mask, source)
+        where source is "device" or "hedge_cpu"."""
+        transient_retries = 0
+        while True:
+            try:
+                return self._device_verify_hedged(dom, items, reason,
+                                                  route=route)
+            except (WatchdogTimeout, BuildError):
+                raise  # the last-resort rung, or no kernel: never retried
+            except Exception as exc:  # noqa: BLE001 - classify + retry
+                cls = classify_device_error(exc)
+                if cls == OOM:
+                    if dom.handle.shrink_chunk_cap():
+                        self.metrics.retries.with_labels(cls=OOM).add()
+                        self.metrics.chunk_shrinks.add()
+                        self._update_chunk_cap_gauge()
+                        self.logger.error(
+                            "device OOM; chunk cap halved, retrying",
+                            err=repr(exc), n=len(items),
+                            device=dom.handle.label,
+                            shrink_levels=dom.handle.chunk_shrink_levels(),
+                        )
+                        with tracelib.use(tracelib.child_of_current(
+                            "retry", cls=OOM, device=dom.handle.label,
+                            shrink_levels=dom.handle.chunk_shrink_levels(),
+                        )):
+                            continue
+                    # already at the floor: the device is out of memory
+                    # even at the smallest chunk — treat as persistent
+                    raise
+                if cls == TRANSIENT and transient_retries < 1:
+                    transient_retries += 1
+                    self.metrics.retries.with_labels(cls=TRANSIENT).add()
+                    with self._lock:
+                        jitter = self._rng.random()
+                    delay = self._retry_s * (0.5 + jitter)
+                    self.logger.info(
+                        "transient device error; retrying once",
+                        err=repr(exc), n=len(items),
+                        backoff_ms=round(delay * 1e3, 1),
+                    )
+                    with tracelib.use(tracelib.child_of_current(
+                        "retry", cls=TRANSIENT,
+                        backoff_ms=round(delay * 1e3, 1),
+                    )):
+                        time.sleep(delay)
+                    continue
+                raise
+
+    def _device_verify_hedged(self, dom: _Domain, items: List[Item],
+                              reason: str, route: Optional[str] = None):
+        """Watchdogged device dispatch with predictive CPU hedging.
+        While the latency model is cold (or ``hedge_pct`` is 0) this is
+        exactly the plain watchdogged dispatch. Once warm, a dispatch
+        overrunning predicted-p99 × hedge_pct/100 races a parallel CPU
+        verify and the first usable mask wins; the loser is audited for
+        divergence when it completes. → (mask, source)."""
+        hedged = self._hedge_pct > 0 and len(items) <= HEDGE_MAX_LANES
+        pred = dom.latency_model.predict_p99(len(items)) if hedged else None
+        h = self._start_device(dom, items, route=route)
+        deadline = h.t0 + self._timeout_s
+        hedge_at = (
+            h.t0 + pred * self._hedge_pct / 100.0
+            if pred is not None else None
+        )
+        if hedge_at is None or hedge_at >= deadline:
+            # cold model / hedge beyond the watchdog: plain path
+            if not h.done.wait(self._timeout_s):
+                h.cancel.set()
+                h.span.end(outcome="watchdog_timeout")
+                raise WatchdogTimeout(
+                    f"device dispatch of {len(items)} items exceeded "
+                    f"{self.dispatch_timeout_ms}ms; abandoned"
+                )
+            return self._reap_device(dom, h), "device"
+        if h.done.wait(max(0.0, hedge_at - time.monotonic())):
+            return self._reap_device(dom, h), "device"
+
+        # hedge fires: race the CPU ground truth against the device
+        self.metrics.hedge_fires.add()
+        hspan = tracelib.child_of_current(
+            "hedge", n_sigs=len(items),
+            predicted_ms=round(pred * 1e3, 3),
+        )
+        cond = threading.Condition()
+        race: dict = {"winner": None}
+
+        def settle(side: str, kind: str, val) -> None:
+            with cond:
+                race[side] = (kind, val)
+                if race["winner"] is None and kind == "ok":
+                    race["winner"] = side
+                both = "cpu" in race and "device" in race
+                cond.notify_all()
+            if not both:
+                return
+            # exactly one settler sees both results present: the loser
+            # audit and any late-watchdog incident are handled here
+            dev, cpu = race["device"], race["cpu"]
+            if dev[0] == "timeout":
+                self.metrics.watchdog_kills.add()
+                self._trip(
+                    dom, "watchdog",
+                    err="hedged device dispatch overran "
+                        "dispatch_timeout_ms",
+                    n=len(items), reason=reason,
+                )
+            elif dev[0] == "ok" and cpu[0] == "ok" and dev[1] != cpu[1]:
+                self.metrics.hedge_divergence.add()
+                self.logger.error(
+                    "hedge loser diverged from released verdicts",
+                    n=len(items), winner=race["winner"],
+                    device=dom.handle.label,
+                )
+                self._audit_mismatch(dom, len(items))
+
+        def cpu_run() -> None:
+            try:
+                settle("cpu", "ok", self._cpu_verify(items))
+            except Exception as exc:  # noqa: BLE001
+                settle("cpu", "err", exc)
+
+        def dev_relay() -> None:
+            if not h.done.wait(max(0.0, deadline - time.monotonic())):
+                h.cancel.set()
+                h.span.end(outcome="watchdog_timeout")
+                settle("device", "timeout", None)
+                return
+            if "exc" in h.box:
+                h.span.end(error=repr(h.box["exc"]))
+                settle("device", "err", h.box["exc"])
+                return
+            t1 = time.monotonic()
+            dom.latency_model.observe(len(items), t1 - h.t0)
+            if self._telemetry is not None:
+                self._telemetry.note_device_busy(
+                    dom.handle.label, h.t0, t1, len(items)
+                )
+            h.span.end(outcome="ok")
+            settle("device", "ok", h.box["mask"])
+
+        threading.Thread(
+            target=cpu_run, daemon=True, name="supervisor-hedge-cpu"
+        ).start()
+        threading.Thread(
+            target=dev_relay, daemon=True, name="supervisor-hedge-relay"
+        ).start()
+        with cond:
+            while race["winner"] is None and not (
+                "cpu" in race and "device" in race
+            ) and not isinstance(race.get("device", (None, None))[1], BuildError):
+                cond.wait(0.05)
+            winner = race["winner"]
+        if winner != "device" and isinstance(race.get("device", (None, None))[1], BuildError):
+            hspan.end(winner="none")
+            raise race["device"][1]  # no kernel: the CPU never answers for it
+        if winner is not None:
+            self.metrics.hedge_wins.with_labels(winner=winner).add()
+            hspan.end(winner=winner)
+            mask = race[winner][1]
+            return mask, ("device" if winner == "device" else "hedge_cpu")
+        # neither side produced a mask: surface the device's failure so
+        # the retry ladder can classify it (a CPU verifier error is a
+        # programming bug, not a device incident)
+        hspan.end(winner="none")
+        kind, val = race["device"]
+        if kind == "timeout":
+            raise RuntimeError(
+                f"hedged dispatch of {len(items)} items: device overran "
+                f"{self.dispatch_timeout_ms}ms and the CPU hedge failed: "
+                f"{race['cpu'][1]!r}"
+            )
+        raise val
+
+    # -- canary probes -------------------------------------------------------
+
+    def probe_now(self, device: Optional[int] = None) -> bool:
+        """Synchronous canary probe(s): dispatch a known-good signed
+        batch through the supervised backend under the watchdog, on ONE
+        fault domain (``device`` index) or every domain (None). Success
+        closes that domain's breaker; failure opens it (or extends its
+        backoff). Used by the node's warmup canary, tools/chaos.py, and
+        tests. → True iff every probed domain passed.
+
+        A no-op (returns False) once the supervisor is stopped: a probe
+        scheduled before shutdown must never touch a torn-down backend."""
+        with self._audit_cond:
+            if self._stopped:
+                return False
+        doms = (
+            list(self._domains) if device is None
+            else [self._domains[device]]
+        )
+        ok = True
+        for dom in doms:
+            ok = self._probe_domain(dom) and ok
+        return ok
+
+    def _probe_domain(self, dom: _Domain) -> bool:
+        """One canary probe against one fault domain's breaker."""
+        with self._audit_cond:
+            if self._stopped:
+                return False
+        items = self._canary_items()
+        err = None
+        try:
+            mask = self._device_verify(dom, items)
+            ok = len(mask) == len(items) and all(mask)
+        except WatchdogTimeout as exc:
+            self.metrics.watchdog_kills.add()
+            ok, err = False, exc
+        except Exception as exc:  # noqa: BLE001
+            ok, err = False, exc
+        newly_opened = False
+        readmitted = False
+        with self._lock:
+            if ok:
+                readmitted = dom.state == BROKEN
+                self._close_breaker_locked(dom)
+            else:
+                dom.backoff_s = min(dom.backoff_s * 2, self._probe_max_s)
+                dom.next_probe_at = time.monotonic() + dom.backoff_s
+                if dom.state != BROKEN:
+                    newly_opened = self._trip_locked(dom, "probe")
+        if newly_opened:
+            self._capture_incident_profile("probe")
+            self._dump_incident("probe")
+        if readmitted:
+            self.metrics.readmissions.with_labels(
+                device=dom.handle.label
+            ).add()
+        self.metrics.probes.with_labels(outcome="ok" if ok else "fail").add()
+        if ok:
+            self.logger.info(
+                "verify canary probe ok", state=self.state(),
+                device=dom.handle.label,
+            )
+        else:
+            self.logger.error(
+                "verify canary probe failed", err=str(err),
+                device=dom.handle.label,
+                next_probe_in_s=round(dom.backoff_s, 3),
+            )
+        return ok
+
+    def warmup_canary(self) -> None:
+        """Kick one background probe at node start so a wedged device
+        plane trips the breaker before consensus traffic arrives. The
+        kernel libraries were built when the supervisor was made
+        (``batch.prepare_backend``), so the probe's first launch is the
+        canary's own."""
+
+        def run() -> None:
+            if self._stopped:
+                return
+            self.probe_now()
+
+        self._spawn_bg(run, "supervisor-canary")
+
+    def _maybe_probe_async(self) -> None:
+        """Kick an exponential-backoff canary for every quarantined
+        domain that is due — each domain re-admits on its own schedule."""
+        now = time.monotonic()
+        due: List[_Domain] = []
+        with self._lock:
+            for dom in self._domains:
+                if (
+                    dom.state == BROKEN
+                    and not dom.probing
+                    and now >= dom.next_probe_at
+                ):
+                    dom.probing = True
+                    due.append(dom)
+        for dom in due:
+            def run(dom: _Domain = dom) -> None:
+                try:
+                    self._probe_domain(dom)
+                finally:
+                    with self._lock:
+                        dom.probing = False
+
+            self._spawn_bg(run, f"supervisor-probe-{dom.handle.label}")
+
+    def _spawn_bg(self, target, name: str) -> None:
+        """Start a background probe/canary thread, tracked so stop()
+        can join it (a daemon probe must never outlive the supervisor
+        and touch a torn-down backend)."""
+        t = threading.Thread(target=target, daemon=True, name=name)
+        with self._lock:
+            self._bg_threads = [
+                x for x in self._bg_threads if x.is_alive()
+            ]
+            self._bg_threads.append(t)
+        t.start()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def stop(self) -> None:
+        """Stop the background audit worker and join any in-flight
+        probe/canary threads (idempotent). Any queued audits are
+        dropped — audits are advisory once the node is shutting down."""
+        with self._audit_cond:
+            self._stopped = True
+            self._audit_queue.clear()
+            self._audit_cond.notify_all()
+        w = self._audit_worker
+        if w is not None and w is not threading.current_thread():
+            w.join(timeout=5.0)
+        with self._lock:
+            bg = list(self._bg_threads)
+            self._bg_threads = []
+        me = threading.current_thread()
+        for t in bg:
+            if t is not me:
+                # bounded: an in-flight probe is itself bounded by the
+                # dispatch watchdog, so this join cannot hang shutdown
+                t.join(timeout=self._timeout_s + 5.0)
+        # a restarted supervisor must not inherit a shrunken chunk cap
+        # (or any other per-device runtime state) from this lifecycle's
+        # incidents
+        self.topology.reset_runtime_state()
+
+    # -- internals: dispatch -------------------------------------------------
+
+    def _start_device(self, dom: _Domain, items: List[Item],
+                      route: Optional[str] = None) -> "_DeviceCall":
+        """Launch the wrapped backend on a watchdog-abandonable worker
+        thread and return immediately with the call handle. A call that
+        outlives its wait is abandoned: its thread keeps the hardware
+        handle (nothing can safely interrupt a kernel launch) but exits
+        at the next chunk boundary through the cancel event. The target
+        fault domain's handle is installed as the worker's device scope,
+        so the mesh chunk loop caps chunks by THIS device's shrink
+        ladder and fault injection can target one domain."""
+        # import OUTSIDE the timed region so a cold import can never
+        # eat the first dispatch's timeout budget
+        from cometbft_tpu_torch.crypto.cuda import mesh, topology
+
+        self.metrics.device_dispatches.add()
+        h = _DeviceCall()
+        # span created on the CALLING thread (so it parents under the
+        # supervise/dispatch span) and installed inside the worker so the
+        # mesh chunk loop's spans nest under it across the thread hop
+        h.span = tracelib.child_of_current(
+            "device", n_sigs=len(items), backend=self.spec.name,
+            device=dom.handle.label, route=route or "auto",
+        )
+
+        def run():
+            try:
+                with tracelib.use(h.span), mesh.cancel_scope(h.cancel), \
+                        topology.device_scope(dom.handle), \
+                        mesh.route_scope(route):
+                    bv = new_batch_verifier(self.spec)
+                    for pk, m, s in items:
+                        bv.add(pk, m, s)
+                    _, mask = bv.verify()
+                if len(mask) != len(items):
+                    raise RuntimeError(
+                        f"backend returned {len(mask)} verdicts for "
+                        f"{len(items)} items"
+                    )
+                h.box["mask"] = mask
+            except BaseException as exc:  # noqa: BLE001 - crosses threads
+                h.box["exc"] = exc
+            finally:
+                h.done.set()
+
+        h.n = len(items)
+        h.t0 = time.monotonic()
+        threading.Thread(
+            target=run, daemon=True, name="supervised-dispatch"
+        ).start()
+        return h
+
+    def _reap_device(self, dom: _Domain, h: "_DeviceCall") -> List[bool]:
+        """Collect a completed device call: re-raise its exception or
+        return its mask, feeding the domain's latency model on success."""
+        if "exc" in h.box:
+            h.span.end(error=repr(h.box["exc"]))
+            raise h.box["exc"]
+        t1 = time.monotonic()
+        dom.latency_model.observe(h.n, t1 - h.t0)
+        if self._telemetry is not None:
+            self._telemetry.note_device_busy(
+                dom.handle.label, h.t0, t1, h.n
+            )
+        h.span.end(outcome="ok")
+        return h.box["mask"]
+
+    def _device_verify(self, dom: _Domain, items: List[Item]) -> List[bool]:
+        """Plain watchdogged device dispatch (no hedging): used by the
+        canary probe and the triage bisection passes."""
+        h = self._start_device(dom, items)
+        if not h.done.wait(self._timeout_s):
+            h.cancel.set()  # the zombie exits at its next chunk boundary
+            # span end is first-wins: the zombie's late spans are dropped
+            h.span.end(outcome="watchdog_timeout")
+            raise WatchdogTimeout(
+                f"device dispatch of {len(items)} items exceeded "
+                f"{self.dispatch_timeout_ms}ms; abandoned"
+            )
+        return self._reap_device(dom, h)
+
+    # -- internals: failed-batch triage --------------------------------------
+
+    def _triage(
+        self,
+        dom: _Domain,
+        items: List[Item],
+        claimed: List[bool],
+        reason: str,
+        origins: Optional[Sequence[Origin]],
+    ) -> List[bool]:
+        """Localize and confirm the claimed-bad lanes of a mixed-verdict
+        batch instead of trusting (or wholesale CPU-re-verifying) the
+        device's per-lane word. Suspects start as the maximal runs of
+        claimed-bad lanes; each pass coalesces every live segment into
+        ONE device dispatch, clears segments the device re-affirms
+        all-clean, bisects segments that still contain a failure, and
+        convicts the singletons that survive. Convictions are confirmed
+        against the CPU ground truth (k lanes, not the whole batch); a
+        CPU overturn is silent corruption and trips the breaker. Bounded
+        by ⌈log₂ n⌉ + 1 device passes; any device failure mid-triage
+        falls back to CPU-verifying the remaining suspects."""
+        n = len(items)
+        n_claimed = sum(1 for ok in claimed if not ok)
+        span = tracelib.child_of_current(
+            "triage", n_sigs=n, n_claimed=n_claimed
+        )
+        self.metrics.triage_runs.add()
+        mask = list(claimed)
+        max_passes = (max(1, math.ceil(math.log2(n))) + 1) if n > 1 else 1
+        segments: List[Tuple[int, int]] = []
+        i = 0
+        while i < n:
+            if not claimed[i]:
+                j = i
+                while j < n and not claimed[j]:
+                    j += 1
+                segments.append((i, j))
+                i = j
+            else:
+                i += 1
+        passes = 0
+        convicted: List[int] = []
+        fell_back = False
+        with tracelib.use(span):
+            while segments and passes < max_passes:
+                lanes = [k for s, e in segments for k in range(s, e)]
+                try:
+                    sub = self._device_verify(
+                        dom, [items[k] for k in lanes]
+                    )
+                except WatchdogTimeout as exc:
+                    # a hang mid-triage is a real incident, not advisory
+                    self.metrics.watchdog_kills.add()
+                    self._trip(
+                        dom, "watchdog", err=str(exc), n=len(lanes),
+                        reason=reason,
+                    )
+                    fell_back = True
+                    break
+                except BuildError:
+                    raise  # not a device fault: the CPU never answers for it
+                except Exception as exc:  # noqa: BLE001
+                    self.logger.error(
+                        "triage device pass failed; CPU-verifying "
+                        "remaining suspects",
+                        err=repr(exc), n=len(lanes),
+                    )
+                    fell_back = True
+                    break
+                passes += 1
+                self.metrics.triage_passes.add()
+                pos = 0
+                nxt: List[Tuple[int, int]] = []
+                for s, e in segments:
+                    seg = sub[pos:pos + (e - s)]
+                    pos += e - s
+                    if all(seg):
+                        # the device re-affirmed the whole segment clean:
+                        # clear it (same trust as any positive verdict —
+                        # the corruption audit covers positives)
+                        for k in range(s, e):
+                            mask[k] = True
+                        continue
+                    if e - s == 1:
+                        convicted.append(s)
+                        continue
+                    mid = (s + e) // 2
+                    nxt.append((s, mid))
+                    nxt.append((mid, e))
+                segments = nxt
+            if segments:
+                # pass cap hit or the device died: remaining suspects go
+                # straight to the ground truth
+                if not fell_back:
+                    self.logger.error(
+                        "triage pass cap hit; CPU-verifying remaining "
+                        "suspects",
+                        passes=passes, cap=max_passes,
+                    )
+                self.metrics.triage_cpu_fallbacks.add()
+                lanes = [k for s, e in segments for k in range(s, e)]
+                cpu = self._cpu_verify([items[k] for k in lanes])
+                for k, ok in zip(lanes, cpu):
+                    mask[k] = ok
+            overturned = 0
+            if convicted:
+                cpu = self._cpu_verify([items[k] for k in convicted])
+                for k, ok in zip(convicted, cpu):
+                    mask[k] = ok
+                    if ok:
+                        overturned += 1
+            if overturned:
+                # the device repeatedly convicted lanes the CPU accepts:
+                # that is silent corruption, the worst failure we guard
+                self.metrics.triage_divergence.add(overturned)
+                self.logger.error(
+                    "triage convictions overturned by CPU ground truth",
+                    n=overturned, reason=reason, device=dom.handle.label,
+                )
+                self._audit_mismatch(dom, overturned)
+            offenders = sum(1 for ok in mask if not ok)
+            self._attribute_offenders(mask, origins, reason)
+        span.end(
+            passes=passes, offenders=offenders,
+            cleared=n_claimed - offenders, fell_back=fell_back,
+        )
+        return mask
+
+    def _attribute_offenders(
+        self,
+        mask: List[bool],
+        origins: Optional[Sequence[Origin]],
+        reason: str,
+    ) -> None:
+        """Charge each triaged bad signature to the request that
+        submitted it, using the scheduler's demux shape."""
+        if origins is None:
+            origins = [(len(mask), None, None)]
+        pos = 0
+        for count, subsystem, height in origins:
+            bad = sum(1 for ok in mask[pos:pos + count] if not ok)
+            pos += count
+            if not bad:
+                continue
+            label = subsystem or "direct"
+            self.metrics.triage_offenders.with_labels(
+                subsystem=label
+            ).add(bad)
+            self.logger.error(
+                "verify triage localized bad signatures",
+                n_bad=bad, subsystem=label, height=height, reason=reason,
+            )
+
+    # -- internals: adaptive chunk cap ---------------------------------------
+
+    def _note_clean_dispatch(self, dom: _Domain) -> None:
+        if dom.handle.note_clean_dispatch(self._chunk_recover_n):
+            self.metrics.chunk_recoveries.add()
+            self._update_chunk_cap_gauge()
+            self.logger.info(
+                "chunk cap recovered one doubling",
+                device=dom.handle.label,
+                shrink_levels=dom.handle.chunk_shrink_levels(),
+            )
+
+    def _update_chunk_cap_gauge(self) -> None:
+        default = self.spec.max_chunk or 8192
+        try:
+            caps = [
+                d.handle.chunk_cap(default, 64) for d in self._domains
+            ]
+            # the parent series stays the most-constrained device's cap
+            # (identical to the old node-global gauge with one domain);
+            # each device also exports its own child series
+            self.metrics.chunk_cap.set(min(caps))
+            for d, cap in zip(self._domains, caps):
+                self.metrics.chunk_cap.with_labels(
+                    device=d.handle.label
+                ).set(cap)
+        except ValueError:
+            pass  # malformed CBFT_TPU_MAX_CHUNK surfaces at dispatch
+
+    def _cpu_verify(self, items: List[Item]) -> List[bool]:
+        with tracelib.child_of_current("cpu", n_sigs=len(items)):
+            t0 = time.monotonic()
+            bv: BatchVerifier = CPUBatchVerifier()
+            for pk, m, s in items:
+                bv.add(pk, m, s)
+            _, mask = bv.verify()
+            if self._telemetry is not None:
+                # the host fallback plane is a capacity pool too: meter
+                # it as its own pseudo-device so a CPU-routed (or plain
+                # cpu-backend) node still shows utilization and headroom
+                self._telemetry.note_device_busy(
+                    "cpu", t0, time.monotonic(), len(items)
+                )
+            return mask
+
+    def _canary_items(self) -> List[Item]:
+        if self._canary is None:
+            from cometbft_tpu_torch.crypto import ed25519 as ed
+
+            items = []
+            for i in range(8):
+                k = ed.gen_priv_key_from_secret(b"supervisor-canary-%d" % i)
+                m = b"supervisor canary message %d" % i
+                items.append((k.pub_key(), m, k.sign(m)))
+            self._canary = items
+        return self._canary
+
+    # -- internals: breaker state machine ------------------------------------
+
+    def _set_state_locked(self, dom: _Domain, new_state: str) -> None:
+        """Move one domain's breaker and refresh both gauges: the
+        per-device breaker_state{device=} series and the aggregate node
+        state the pre-topology consumers watch."""
+        dom.state = new_state
+        self.metrics.breaker_state.with_labels(
+            device=dom.handle.label
+        ).set(_STATE_CODE[new_state])
+        agg = self._aggregate_state_locked()
+        self.metrics.state.set(_STATE_CODE[agg])
+        if agg != self._last_aggregate_state:
+            self._last_aggregate_state = agg
+            for fn in self._state_listeners:
+                try:
+                    fn(agg)
+                except Exception:  # noqa: BLE001 - listener is advisory
+                    pass
+
+    def _note_success(self, dom: _Domain) -> None:
+        with self._lock:
+            if dom.state == BROKEN:
+                return  # only a probe may close an open breaker
+            dom.consecutive_failures = 0
+            if dom.state == DEGRADED:
+                self._set_state_locked(dom, HEALTHY)
+
+    def _note_failure(
+        self, dom: _Domain, exc: BaseException, n: int, reason: str
+    ) -> None:
+        self.metrics.failures.add()
+        self.logger.error(
+            "supervised verify dispatch failed; falling back to CPU",
+            err=repr(exc), n=n, reason=reason, backend=self.spec.name,
+            device=dom.handle.label,
+        )
+        with self._lock:
+            dom.consecutive_failures += 1
+            if dom.consecutive_failures >= self._threshold:
+                self._trip_locked(dom, "failures")
+            elif dom.state == HEALTHY:
+                self._set_state_locked(dom, DEGRADED)
+
+    def _trip(self, dom: _Domain, cause: str, **kv) -> None:
+        self.logger.error(
+            f"verify circuit breaker opened ({cause})",
+            device=dom.handle.label, **kv,
+        )
+        with self._lock:
+            newly_opened = self._trip_locked(dom, cause)
+        if newly_opened:
+            self._note_timeline("breaker_open", device=dom.handle.label,
+                                cause=cause)
+            self._capture_incident_profile(cause)
+            self._dump_incident(cause)
+
+    def _note_timeline(self, kind: str, **detail) -> None:
+        """Feed one breaker/watchdog event into the hub's incident
+        timeline. Best-effort: a hub predating note_event (or none at
+        all) costs one attribute read."""
+        if self._telemetry is None:
+            return
+        note = getattr(self._telemetry, "note_event", None)
+        if note is None:
+            return
+        try:
+            note(kind, detail)
+        except Exception:  # noqa: BLE001 - diagnostics only
+            pass
+
+    def _trip_locked(self, dom: _Domain, cause: str) -> bool:
+        """Open one domain's breaker; True if it was not already open
+        (so callers can fire once-per-incident actions outside the
+        lock). A trip that leaves other domains serving is a quarantine,
+        not a node outage — counted per device."""
+        newly_opened = dom.state != BROKEN
+        if newly_opened:
+            self.metrics.trips.with_labels(cause=cause).add()
+            self.metrics.quarantines.with_labels(
+                device=dom.handle.label
+            ).add()
+        self._set_state_locked(dom, BROKEN)
+        dom.backoff_s = self._probe_base_s
+        dom.next_probe_at = time.monotonic() + dom.backoff_s
+        self._sync_quarantine(dom, True)
+        return newly_opened
+
+    def _sync_quarantine(self, dom: _Domain, flag: bool) -> None:
+        """Mirror one domain's breaker into the topology's quarantine
+        set, bumping its generation counter so the sharded mesh plan
+        cache (mesh.shard_plan) re-slices on the next dispatch. Best
+        effort: a topology without quarantine support (tests, shims)
+        simply keeps the full mesh."""
+        setter = getattr(self.topology, "set_quarantined", None)
+        if setter is None:
+            return
+        try:
+            setter(dom.handle.index, flag)
+        except Exception:  # noqa: BLE001 - plan cache stays stale, not fatal
+            pass
+
+    def _capture_incident_profile(self, cause: str) -> None:
+        """Fire the incident profiler's one-shot capture on a breaker
+        trip (bounded, cooldown-limited — see libs/profiling.py). The
+        capture path is tagged into the flight-recorder dump through
+        the profiler's last_capture record. Best-effort."""
+        if self._profiler is None:
+            return
+        try:
+            self._profiler.on_breaker_trip(cause)
+        except Exception:  # noqa: BLE001 - diagnostics only
+            pass
+
+    def _dump_incident(self, cause: str) -> None:
+        """Write the trace flight recorder to disk so the dispatches that
+        led up to a watchdog trip / circuit-break are post-mortem
+        debuggable. Best-effort: a dump failure must never take down the
+        verify path. The per-device breaker states ride along so the
+        post-mortem shows WHICH fault domain was sick, and — when the
+        memory plane / incident profiler are installed — a memory
+        snapshot and the latest profile capture ride along too, so an
+        OOM-adjacent incident carries bytes_in_use/peak next to the
+        breaker states."""
+        extra: Dict[str, object] = {
+            "device_breaker_states": self.device_states()
+        }
+        if self._memory_plane is not None:
+            try:
+                extra["memory"] = self._memory_plane.snapshot()
+            except Exception:  # noqa: BLE001 - diagnostics only
+                pass
+        if self._profiler is not None:
+            try:
+                extra["profile"] = self._profiler.last_capture()
+            except Exception:  # noqa: BLE001 - diagnostics only
+                pass
+        try:
+            try:
+                path = self._tracer.dump(cause, extra=extra)
+            except TypeError:
+                # a custom tracer predating the extra= parameter
+                path = self._tracer.dump(cause)
+        except Exception:  # noqa: BLE001 - diagnostics only
+            return
+        if path:
+            self.logger.error(
+                "verify incident: flight recorder dumped",
+                cause=cause, path=path,
+            )
+
+    def _close_breaker_locked(self, dom: _Domain) -> None:
+        if dom.state != HEALTHY:
+            self.logger.info(
+                "verify circuit breaker closed", device=dom.handle.label
+            )
+            self._note_timeline("breaker_close", device=dom.handle.label)
+        self._set_state_locked(dom, HEALTHY)
+        dom.consecutive_failures = 0
+        dom.backoff_s = self._probe_base_s
+        dom.next_probe_at = 0.0
+        self._sync_quarantine(dom, False)
+
+    # -- internals: corruption audit -----------------------------------------
+
+    def _should_audit(self) -> bool:
+        if self._audit_pct >= 100:
+            return True
+        with self._lock:
+            return self._rng.random() * 100.0 < self._audit_pct
+
+    def _audit_mismatch(self, dom: _Domain, n: int) -> None:
+        self.metrics.audit_mismatches.add()
+        self._trip(dom, "audit", n=n)
+
+    def _enqueue_audit(
+        self, dom: _Domain, items: List[Item], mask: List[bool]
+    ) -> None:
+        if len(items) > AUDIT_MAX_LANES:
+            with self._lock:
+                lanes = sorted(self._rng.sample(range(len(items)), AUDIT_MAX_LANES))
+            items = [items[i] for i in lanes]
+            mask = [mask[i] for i in lanes]
+        with self._audit_cond:
+            if self._stopped:
+                return
+            if len(self._audit_queue) >= _AUDIT_QUEUE_CAP:
+                self.metrics.audit_drops.add()
+                return
+            self._audit_queue.append((dom, items, mask))
+            if self._audit_worker is None or not self._audit_worker.is_alive():
+                self._audit_worker = threading.Thread(
+                    target=self._audit_run, daemon=True,
+                    name="supervisor-audit",
+                )
+                self._audit_worker.start()
+            self._audit_cond.notify_all()
+
+    def _audit_run(self) -> None:
+        while True:
+            with self._audit_cond:
+                while not self._audit_queue and not self._stopped:
+                    self._audit_cond.wait(1.0)
+                if self._stopped:
+                    return
+                dom, items, mask = self._audit_queue.popleft()
+            span = self._tracer.start_span(
+                "audit", sync=False, n_sigs=len(items)
+            )
+            try:
+                with tracelib.use(span):
+                    cpu_mask = self._cpu_verify(items)
+            except Exception as exc:  # noqa: BLE001 - audit must not die
+                span.end(error=repr(exc))
+                self.logger.error("corruption audit failed", err=str(exc))
+                continue
+            self.metrics.audits.add()
+            mismatch = cpu_mask != mask
+            span.end(mismatch=mismatch)
+            if mismatch:
+                self._audit_mismatch(dom, len(items))
+
+
+class SupervisedBatchVerifier(BatchVerifier):
+    """add()/verify() protocol on top of a BackendSupervisor, so the
+    supervisor can travel anywhere a backend name / BackendSpec does
+    (crypto/batch.py new_batch_verifier unwraps it)."""
+
+    def __init__(self, supervisor: BackendSupervisor):
+        self._supervisor = supervisor
+        self._items: List[Item] = []
+
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
+        if pub_key is None:
+            raise ValueError("nil pubkey")
+        self._items.append((pub_key, bytes(msg), bytes(sig)))
+
+    def count(self) -> int:
+        return len(self._items)
+
+    def verify(self) -> Tuple[bool, List[bool]]:
+        items, self._items = self._items, []
+        if not items:
+            return False, []
+        mask = self._supervisor.verify_items(items)
+        return all(mask), mask

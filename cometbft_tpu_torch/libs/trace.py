@@ -1,0 +1,688 @@
+"""Zero-dependency tracing for the verify hot path (reference:
+cometbft_tpu/libs/trace.py, all of it; the port's own copy). The
+supervisor opens a dispatch's ``device`` span on the calling thread and
+installs it in the worker thread it starts, so spans cross that hop as
+the reference's do (crypto/supervisor.py).
+
+The verify pipeline crosses four layers (caller -> VerifyScheduler ->
+BackendSupervisor -> mesh.dispatch_batch) and several threads.  Aggregate
+counters cannot attribute a slow commit verification to queue wait vs.
+flush deadline vs. device dispatch vs. CPU fallback; spans can.
+
+Design:
+
+- ``Span`` carries (trace_id, span_id, parent_id, name, tags) and
+  ``time.perf_counter_ns`` timestamps.  Spans are cheap plain objects;
+  ``end()`` is idempotent and first-wins under the tracer lock so racing
+  completion paths (demux vs. stop-fail vs. watchdog) are safe.
+- ``Tracer`` makes the sampling decision once, at root-span creation.
+  Unsampled (or disabled) paths get the shared ``NOOP_SPAN`` whose every
+  method is a no-op returning itself -- the disabled fast path allocates
+  nothing and takes no locks.
+- Completed traces land in a bounded ring buffer (the *flight recorder*):
+  a trace completes when its **root** span ends; child spans that finish
+  first are collected, stragglers that outlive the root (e.g. zombie
+  dispatch threads abandoned by the watchdog) are dropped so the recorder
+  stays bounded.
+- Cross-thread propagation uses a module-level thread-local span stack
+  (``use`` / ``current_span`` / ``child_of_current``) shared by all
+  tracers, so deep layers (mesh chunk loop) attach to whichever tracer
+  owns the enclosing span without any plumbing through call signatures.
+- ``chrome_trace`` converts recorded traces to Chrome trace-event JSON
+  ("X" complete events; one tid per trace) loadable in Perfetto or
+  chrome://tracing.
+- ``Tracer.dump(reason)`` writes the flight recorder to a JSON file --
+  wired to watchdog trips and circuit-breaker opens by the supervisor.
+
+Env overrides (highest precedence), then config, then built-ins:
+
+- ``CBFT_TRACE_SAMPLE``    fraction of request roots sampled (0 disables)
+- ``CBFT_TRACE_BUFFER``    flight-recorder capacity (completed traces)
+- ``CBFT_TRACE_DUMP_DIR``  directory for incident dumps
+- ``CBFT_TRACE_DUMP_KEEP`` incident dumps kept on disk (newest N)
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+DEFAULT_SAMPLE = 0.0
+DEFAULT_BUFFER = 256
+DEFAULT_DUMP_KEEP = 20
+
+# Bound memory held by traces whose root never ends (leaked roots).
+_MAX_OPEN_TRACES = 1024
+# Bound spans collected per trace (runaway chunk loops).
+_MAX_SPANS_PER_TRACE = 4096
+
+
+def trace_sample_default(config_value: Optional[float] = None) -> float:
+    """Resolve the sampling fraction: env > config > built-in default."""
+    raw = os.environ.get("CBFT_TRACE_SAMPLE")
+    if raw is not None:
+        try:
+            return min(1.0, max(0.0, float(raw)))
+        except ValueError:
+            pass
+    if config_value is not None:
+        return min(1.0, max(0.0, float(config_value)))
+    return DEFAULT_SAMPLE
+
+
+def trace_buffer_default(config_value: Optional[int] = None) -> int:
+    """Resolve the flight-recorder capacity: env > config > built-in."""
+    raw = os.environ.get("CBFT_TRACE_BUFFER")
+    if raw is not None:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    if config_value is not None:
+        return max(1, int(config_value))
+    return DEFAULT_BUFFER
+
+
+def trace_dump_keep_default(config_value: Optional[int] = None) -> int:
+    """Resolve on-disk incident-dump retention (newest N kept):
+    env > [instrumentation] trace_dump_keep > built-in 20."""
+    raw = os.environ.get("CBFT_TRACE_DUMP_KEEP")
+    if raw is not None:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    if config_value is not None:
+        return max(1, int(config_value))
+    return DEFAULT_DUMP_KEEP
+
+
+# --------------------------------------------------------------------------
+# Module-level current-span propagation (shared across tracers/threads).
+
+_ctx = threading.local()
+
+
+def current_span() -> Optional["Span"]:
+    """The innermost span installed via ``use`` on this thread, or None."""
+    stack = getattr(_ctx, "stack", None)
+    if stack:
+        return stack[-1]
+    return None
+
+
+def child_of_current(name: str, **tags: Any) -> "Span":
+    """Child of the thread's current span, or NOOP_SPAN when untraced.
+
+    This is the deep-layer entry point (mesh chunk loop): zero cost when
+    no span is installed or the installed span is the no-op.
+    """
+    cur = current_span()
+    if cur is None:
+        return NOOP_SPAN
+    return cur.child(name, **tags)
+
+
+class use:
+    """Context manager installing ``span`` as this thread's current span."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self, span: "Span"):
+        self._span = span
+
+    def __enter__(self) -> "Span":
+        stack = getattr(_ctx, "stack", None)
+        if stack is None:
+            stack = _ctx.stack = []
+        stack.append(self._span)
+        return self._span
+
+    def __exit__(self, *exc: Any) -> bool:
+        stack = getattr(_ctx, "stack", None)
+        if stack:
+            try:
+                if stack[-1] is self._span:
+                    stack.pop()
+                else:  # unbalanced exit; remove wherever it sits
+                    stack.remove(self._span)
+            except ValueError:
+                pass
+        return False
+
+
+# --------------------------------------------------------------------------
+# Spans.
+
+
+class _NoopSpan:
+    """Shared do-nothing span for disabled/unsampled paths."""
+
+    __slots__ = ()
+    noop = True
+    trace_id = 0
+    span_id = 0
+    parent_id = None
+    name = ""
+
+    def set_tag(self, key: str, value: Any) -> "_NoopSpan":
+        return self
+
+    def child(self, name: str, **tags: Any) -> "_NoopSpan":
+        return self
+
+    def end(self, **tags: Any) -> None:
+        return None
+
+    def duration_ns(self) -> int:
+        return 0
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class Span:
+    __slots__ = (
+        "tracer",
+        "trace_id",
+        "span_id",
+        "parent_id",
+        "name",
+        "tags",
+        "t0_ns",
+        "t1_ns",
+        "local_root",
+    )
+    noop = False
+
+    def __init__(
+        self,
+        tracer: "Tracer",
+        trace_id: int,
+        span_id: int,
+        parent_id: Optional[int],
+        name: str,
+        tags: Dict[str, Any],
+        local_root: Optional[bool] = None,
+    ):
+        self.tracer = tracer
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.tags = tags
+        self.t0_ns = time.perf_counter_ns()
+        self.t1_ns: Optional[int] = None
+        # A trace completes in THIS process when its local root ends.  For
+        # ordinary roots that is parent_id is None; a span adopted from a
+        # remote parent (trace context off the wire) is a local root with a
+        # non-None parent_id pointing at the other process's span.
+        self.local_root = (parent_id is None) if local_root is None else local_root
+
+    def set_tag(self, key: str, value: Any) -> "Span":
+        self.tags[key] = value
+        return self
+
+    def child(self, name: str, **tags: Any) -> "Span":
+        return self.tracer._child(self, name, tags)
+
+    def end(self, **tags: Any) -> None:
+        self.tracer._end(self, tags)
+
+    def duration_ns(self) -> int:
+        if self.t1_ns is None:
+            return 0
+        return self.t1_ns - self.t0_ns
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, etype: Any, exc: Any, tb: Any) -> bool:
+        if exc is not None:
+            self.end(error=repr(exc))
+        else:
+            self.end()
+        return False
+
+    def to_dict(self) -> Dict[str, Any]:
+        t1 = self.t1_ns if self.t1_ns is not None else self.t0_ns
+        return {
+            "name": self.name,
+            "trace_id": format(self.trace_id, "016x"),
+            "span_id": format(self.span_id, "x"),
+            "parent_id": format(self.parent_id, "x") if self.parent_id else None,
+            "start_us": self.t0_ns / 1e3,
+            "dur_us": (t1 - self.t0_ns) / 1e3,
+            "tags": dict(self.tags),
+        }
+
+
+# --------------------------------------------------------------------------
+# Tracer + flight recorder.
+
+
+class Tracer:
+    """Sampling span factory with a bounded flight recorder.
+
+    ``on_span_end`` (if set) is invoked for every finished sampled span
+    outside the tracer lock -- used to feed stage-latency histograms.
+    """
+
+    def __init__(
+        self,
+        sample: Optional[float] = None,
+        buffer: Optional[int] = None,
+        on_span_end: Optional[Callable[[Span], None]] = None,
+        seed: Optional[int] = None,
+        dump_dir: Optional[str] = None,
+        dump_keep: Optional[int] = None,
+    ):
+        self.sample = trace_sample_default(sample) if sample is None else min(
+            1.0, max(0.0, float(sample))
+        )
+        self.buffer_size = trace_buffer_default(buffer) if buffer is None else max(
+            1, int(buffer)
+        )
+        self.dump_keep = (
+            trace_dump_keep_default(dump_keep)
+            if dump_keep is None
+            else max(1, int(dump_keep))
+        )
+        self._on_span_end = on_span_end
+        self._rng = random.Random(seed)
+        self._mtx = threading.Lock()
+        self._next_id = 1
+        # trace_id -> list of *finished* non-root spans (root kept by caller)
+        self._open: Dict[int, List[Span]] = {}
+        self._buffer: deque = deque(maxlen=self.buffer_size)
+        self._dump_dir = dump_dir
+        self._dump_context: Optional[Callable[[], dict]] = None
+        self.n_started = 0  # sampled root spans created (test/debug stat)
+        self.n_completed = 0  # traces that reached the flight recorder
+
+    # -- construction ------------------------------------------------------
+
+    def set_on_span_end(self, fn: Optional[Callable[[Span], None]]) -> None:
+        self._on_span_end = fn
+
+    def add_span_end_listener(self, fn: Callable[[Span], None]) -> None:
+        """Chain ``fn`` onto the span-end hook without displacing the
+        current listener (both run; listener exceptions are swallowed at
+        the call site as before). Lets several consumers — the stage
+        histogram, the supervisor's dispatch latency model, tests —
+        observe finished spans independently."""
+        prev = self._on_span_end
+        if prev is None:
+            self._on_span_end = fn
+            return
+
+        def chained(span: "Span") -> None:
+            try:
+                prev(span)
+            finally:
+                fn(span)
+
+        self._on_span_end = chained
+
+    def set_dump_dir(self, path: Optional[str]) -> None:
+        self._dump_dir = path
+
+    def set_dump_context(self, fn: Optional[Callable[[], dict]]) -> None:
+        """Install a callable whose dict result is merged into EVERY
+        incident dump document (under explicit ``extra`` keys' losing
+        side — a caller's extra wins on collision). The node wires the
+        memory plane's snapshot here so any dump, whoever initiates it,
+        carries bytes_in_use/peak alongside the breaker states.
+        Best-effort: a context failure is recorded in the dump rather
+        than failing it."""
+        self._dump_context = fn
+
+    def start_span(self, name: str, parent: Optional[Span] = None, **tags: Any) -> Span:
+        """Open a span.  With no parent this is a trace root and the
+        sampling decision is made here; ``sample <= 0`` returns the shared
+        no-op span without touching the rng or any lock."""
+        if parent is not None and not parent.noop:
+            return self._child(parent, name, tags)
+        if self.sample <= 0.0:
+            return NOOP_SPAN
+        if self.sample < 1.0:
+            with self._mtx:
+                roll = self._rng.random()
+            if roll >= self.sample:
+                return NOOP_SPAN
+        with self._mtx:
+            trace_id = self._new_id_locked()
+            span_id = self._new_id_locked()
+            self.n_started += 1
+        return Span(self, trace_id, span_id, None, name, tags)
+
+    def span(self, name: str, **tags: Any) -> Span:
+        """Child of this thread's current span, else a fresh sampled root."""
+        cur = current_span()
+        if cur is not None:
+            return cur.child(name, **tags)
+        return self.start_span(name, **tags)
+
+    # -- cross-process propagation ----------------------------------------
+
+    def start_remote_root(self, name: str, **tags: Any) -> Span:
+        """Root span whose trace id is safe to ship across processes.
+
+        Regular roots use small sequential ids (cheap, debuggable) which
+        would collide between two independent tracers; a remote root draws
+        a random 63-bit trace id so client- and server-side dumps join on
+        it unambiguously.  Sampling semantics match ``start_span``."""
+        if self.sample <= 0.0:
+            return NOOP_SPAN
+        if self.sample < 1.0:
+            with self._mtx:
+                roll = self._rng.random()
+            if roll >= self.sample:
+                return NOOP_SPAN
+        with self._mtx:
+            trace_id = self._rng.getrandbits(63) | 1
+            span_id = self._rng.getrandbits(63) | 1
+            self.n_started += 1
+        return Span(self, trace_id, span_id, None, name, tags)
+
+    def adopt_span(
+        self,
+        name: str,
+        trace_id: int,
+        parent_id: int,
+        sampled: bool = True,
+        **tags: Any,
+    ) -> Span:
+        """Continue a trace begun in another process.
+
+        The remote sender already made the sampling decision (carried in
+        the wire flag); a sampled context always produces a real span here
+        regardless of the local sampling fraction, so the two halves of the
+        trace stay joinable.  The span is a *local root* — it completes a
+        trace in this process's flight recorder when it ends — but keeps
+        ``parent_id`` pointing at the remote parent so a merged report can
+        re-nest it."""
+        if not sampled:
+            return NOOP_SPAN
+        with self._mtx:
+            span_id = self._rng.getrandbits(63) | 1
+            self.n_started += 1
+        return Span(
+            self, trace_id, span_id, parent_id, name, tags, local_root=True
+        )
+
+    # -- recorder ----------------------------------------------------------
+
+    def recent(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Completed traces, newest first, as JSON-ready dicts."""
+        with self._mtx:
+            traces = list(self._buffer)
+        traces.reverse()
+        if limit is not None:
+            traces = traces[: max(0, int(limit))]
+        return traces
+
+    def clear(self) -> None:
+        with self._mtx:
+            self._buffer.clear()
+            self._open.clear()
+
+    def dump(
+        self,
+        reason: str,
+        path: Optional[str] = None,
+        extra: Optional[dict] = None,
+    ) -> Optional[str]:
+        """Write the flight recorder to a JSON file; returns the path.
+
+        Destination: explicit ``path`` > ``CBFT_TRACE_DUMP_DIR`` env >
+        configured dump dir.  Returns None (no-op) when no destination is
+        configured.  Each incident gets its OWN file
+        (``trace_dump_<reason>_<ns>.json`` — a repeated cause no longer
+        overwrites the previous incident's evidence), and retention is
+        bounded at write time: only the newest ``dump_keep``
+        (CBFT_TRACE_DUMP_KEEP > [instrumentation] trace_dump_keep > 20)
+        ``trace_dump_*.json`` files survive in the destination
+        directory.  An explicit ``path`` is written verbatim and exempt
+        from pruning — the caller owns that location.  ``extra`` (a
+        JSON-able dict) is merged into the document — the supervisor
+        records the per-device breaker states here so an incident dump
+        shows which fault domain was sick.
+        """
+        prune_dir = None
+        if path is None:
+            dump_dir = os.environ.get("CBFT_TRACE_DUMP_DIR") or self._dump_dir
+            if not dump_dir:
+                return None
+            safe = "".join(c if c.isalnum() or c in "-_" else "_" for c in reason)
+            path = os.path.join(
+                dump_dir,
+                f"trace_dump_{safe or 'incident'}_{time.time_ns()}.json",
+            )
+            prune_dir = dump_dir
+        doc = {
+            "reason": reason,
+            "wall_time": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+            "sample": self.sample,
+            "traces": self.recent(),
+        }
+        ctx = self._dump_context
+        if ctx is not None:
+            try:
+                ctx_doc = ctx()
+                if isinstance(ctx_doc, dict):
+                    doc.update(ctx_doc)
+            except Exception as exc:  # noqa: BLE001 - diagnostics only
+                doc["dump_context_error"] = repr(exc)
+        if extra:
+            doc.update(extra)
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=1)
+            os.replace(tmp, path)
+        except OSError:
+            return None
+        if prune_dir is not None:
+            self._prune_dumps(prune_dir)
+        return path
+
+    def _prune_dumps(self, dump_dir: str) -> None:
+        """Delete the oldest ``trace_dump_*.json`` files beyond
+        ``dump_keep`` (by mtime, newest kept). Best-effort: a dump dir
+        race or permission error never surfaces into the incident path."""
+        try:
+            entries = []
+            for name in os.listdir(dump_dir):
+                if not (name.startswith("trace_dump_")
+                        and name.endswith(".json")):
+                    continue
+                p = os.path.join(dump_dir, name)
+                try:
+                    entries.append((os.path.getmtime(p), p))
+                except OSError:
+                    continue
+            entries.sort(reverse=True)  # newest first
+            for _, p in entries[self.dump_keep:]:
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+        except OSError:
+            pass
+
+    # -- internals ---------------------------------------------------------
+
+    def _new_id_locked(self) -> int:
+        i = self._next_id
+        self._next_id += 1
+        return i
+
+    def _child(self, parent: Span, name: str, tags: Dict[str, Any]) -> Span:
+        if parent.noop:
+            return NOOP_SPAN
+        with self._mtx:
+            span_id = self._new_id_locked()
+        return Span(parent.tracer, parent.trace_id, span_id, parent.span_id, name, tags)
+
+    def _end(self, span: Span, tags: Dict[str, Any]) -> None:
+        completed = None
+        with self._mtx:
+            if span.t1_ns is not None:  # idempotent, first-wins
+                return
+            span.t1_ns = time.perf_counter_ns()
+            if tags:
+                span.tags.update(tags)
+            if span.local_root:
+                # Root ended: trace complete.  Stragglers ending after this
+                # point find no open record and are dropped.
+                spans = self._open.pop(span.trace_id, [])
+                spans.append(span)
+                spans.sort(key=lambda s: s.t0_ns)
+                self._buffer.append(
+                    {
+                        "trace_id": format(span.trace_id, "016x"),
+                        "root": span.name,
+                        "dur_us": span.duration_ns() / 1e3,
+                        "spans": [s.to_dict() for s in spans],
+                    }
+                )
+                self.n_completed += 1
+            else:
+                rec = self._open.get(span.trace_id)
+                if rec is None:
+                    if len(self._open) >= _MAX_OPEN_TRACES:
+                        # Evict the oldest open trace to stay bounded.
+                        self._open.pop(next(iter(self._open)))
+                    rec = self._open[span.trace_id] = []
+                if len(rec) < _MAX_SPANS_PER_TRACE:
+                    rec.append(span)
+            completed = span
+        if completed is not None and self._on_span_end is not None:
+            try:
+                self._on_span_end(completed)
+            except Exception:
+                pass
+
+
+# --------------------------------------------------------------------------
+# Default (process-wide) tracer: used when a component isn't handed one
+# explicitly.  Resolved lazily from env so tests can monkeypatch first.
+
+_default: Optional[Tracer] = None
+_default_mtx = threading.Lock()
+
+
+def default_tracer() -> Tracer:
+    global _default
+    with _default_mtx:
+        if _default is None:
+            _default = Tracer()
+        return _default
+
+
+def set_default_tracer(tracer: Optional[Tracer]) -> None:
+    global _default
+    with _default_mtx:
+        _default = tracer
+
+
+# --------------------------------------------------------------------------
+# Exporters.
+
+
+def _jsonable(v: Any) -> Any:
+    if isinstance(v, (bool, int, float, str)) or v is None:
+        return v
+    return str(v)
+
+
+def chrome_trace(traces: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Convert recorded traces to Chrome trace-event JSON.
+
+    Each trace gets its own tid; spans become "X" (complete) events whose
+    time containment renders the request -> dispatch -> chunk nesting in
+    Perfetto / chrome://tracing.
+    """
+    events: List[Dict[str, Any]] = []
+    for i, tr in enumerate(traces):
+        tid = i + 1
+        events.append(
+            {
+                "ph": "M",
+                "name": "thread_name",
+                "pid": 1,
+                "tid": tid,
+                "args": {"name": "trace %s" % tr.get("trace_id", "?")[-8:]},
+            }
+        )
+        for sp in tr.get("spans", ()):
+            args = {k: _jsonable(v) for k, v in (sp.get("tags") or {}).items()}
+            args["span_id"] = sp.get("span_id")
+            if sp.get("parent_id"):
+                args["parent_id"] = sp["parent_id"]
+            events.append(
+                {
+                    "name": sp.get("name", "?"),
+                    "cat": "verify",
+                    "ph": "X",
+                    "pid": 1,
+                    "tid": tid,
+                    "ts": round(float(sp.get("start_us", 0.0)), 3),
+                    "dur": max(round(float(sp.get("dur_us", 0.0)), 3), 0.001),
+                    "args": args,
+                }
+            )
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+# --------------------------------------------------------------------------
+# Registry bridge: per-stage latency histograms.
+
+# Span durations range from sub-µs (chunk issue) to seconds (watchdog).
+_STAGE_BUCKETS = (
+    0.00001,
+    0.0001,
+    0.00025,
+    0.0005,
+    0.001,
+    0.0025,
+    0.005,
+    0.01,
+    0.025,
+    0.05,
+    0.1,
+    0.25,
+    0.5,
+    1.0,
+    2.5,
+    5.0,
+)
+
+
+def attach_stage_metrics(tracer: Tracer, registry: Any) -> None:
+    """Feed every finished span into a ``verify_trace_stage_seconds``
+    histogram labelled by stage (= span name) on ``registry``."""
+    hist = registry.histogram(
+        "verify_trace",
+        "stage_seconds",
+        "Per-stage verify-path span latency (stage = span name).",
+        buckets=_STAGE_BUCKETS,
+    )
+
+    def on_end(span: Span) -> None:
+        hist.with_labels(stage=span.name).observe(span.duration_ns() / 1e9)
+
+    tracer.add_span_end_listener(on_end)

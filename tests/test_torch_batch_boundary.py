@@ -11,8 +11,9 @@ on the CPU.
 * new_batch_verifier takes ``subsystem=``: under a scheduler both
   packages build a ScheduledBatchVerifier that submits the collected
   items once, tagged with the subsystem, and returns the scheduler's
-  answer; a supervisor raises NotImplementedError in the port (it has no
-  supervisor yet) instead of resolving to a name;
+  answer; under a supervisor both build a SupervisedBatchVerifier that
+  hands the collected items to ``verify_items`` once and answers with
+  its mask;
 * routing resolves through the spec: ``resident_commit_eligible`` is
   true under ``BackendSpec("gpu")`` and under a scheduler whose spec is
   "gpu" (``torch.cuda.is_available`` patched: the check builds the
@@ -74,10 +75,18 @@ class _Scheduler:
 
 
 class _Supervisor:
+    """A supervisor as crypto/supervisor.py shapes one: ``.verify_items``
+    returns a mask, ``.spec`` names the backend behind it."""
+
     spec = ref_batch.BackendSpec("cpu")
 
-    def verify_items(self, items):  # pragma: no cover - never reached
-        raise AssertionError
+    def __init__(self, mask=(True,)):
+        self.mask = list(mask)
+        self.calls = []
+
+    def verify_items(self, items):
+        self.calls.append([(pk.bytes(), m, s) for pk, m, s in items])
+        return list(self.mask)
 
 
 class _OtherKey(PubKey):
@@ -147,8 +156,17 @@ def check_scheduler_and_supervisor():
     assert tc.outcome(lambda: port_bv.add(None, b"", b"")) == tc.outcome(lambda: ref_bv.add(None, b"", b""))
     for sub in (None, "blocksync", "light"):
         assert isinstance(port_batch.new_batch_verifier("cpu", subsystem=sub), port_batch.CPUBatchVerifier)
-    got = tc.outcome(lambda: port_batch.new_batch_verifier(_Supervisor(), subsystem="consensus"))
-    assert got[0] == "NotImplementedError" and "supervisor" in got[1], got
+    ref_sup, port_sup = _Supervisor([True, False]), _Supervisor([True, False])
+    ref_bv = ref_batch.new_batch_verifier(ref_sup, subsystem="consensus")
+    port_bv = port_batch.new_batch_verifier(port_sup, subsystem="consensus")
+    assert type(port_bv).__name__ == type(ref_bv).__name__ == "SupervisedBatchVerifier"
+    assert port_bv.verify() == ref_bv.verify() == (False, [])
+    for (pk, m, s), (ppk, pm, ps) in zip(items, port_items):
+        ref_bv.add(pk, m, s)
+        port_bv.add(ppk, pm, ps)
+    assert port_bv.count() == ref_bv.count() == 2
+    assert port_bv.verify() == ref_bv.verify() == (False, [True, False])
+    assert port_sup.calls == ref_sup.calls and len(port_sup.calls) == 1
 
 
 def check_routing_through_the_spec(monkeypatch):

@@ -1,6 +1,7 @@
 """The port stands alone: importing it, or chip_smoke.py, loads neither JAX
 nor any module of the reference package, and nothing falls back to the CPU
-when the card is missing.
+when the card is missing: not the entry points, and not the verify plane
+(a supervisor or scheduler over "gpu" raises when it is built).
 
 The import check runs in a fresh interpreter, so what this test process
 has already imported (the JAX package, through tests/conftest.py) does not
@@ -61,6 +62,16 @@ def check_imports_in_a_fresh_interpreter(tmp_path):
     )
     assert {
         "cometbft_tpu_torch.abci.types",
+        "cometbft_tpu_torch.crypto.cuda.topology",
+        "cometbft_tpu_torch.crypto.decisions",
+        "cometbft_tpu_torch.crypto.faults",
+        "cometbft_tpu_torch.crypto.qos",
+        "cometbft_tpu_torch.crypto.scheduler",
+        "cometbft_tpu_torch.crypto.supervisor",
+        "cometbft_tpu_torch.libs.log",
+        "cometbft_tpu_torch.libs.metrics",
+        "cometbft_tpu_torch.libs.service",
+        "cometbft_tpu_torch.libs.trace",
         "cometbft_tpu_torch.crypto.cuda.ed25519_batch",
         "cometbft_tpu_torch.crypto.cuda.sr25519_batch",
         "cometbft_tpu_torch.crypto.merkle",
@@ -196,6 +207,118 @@ def check_light_verifier_needs_the_card(tmp_path, monkeypatch):
     assert ran == [], ran
 
 
+def check_verify_plane_needs_the_card(tmp_path):
+    """With CUDA_VISIBLE_DEVICES="", a supervisor or a scheduler over "gpu"
+    (named, by default, or behind a fault plan) raises at construction,
+    before any item is queued or any signature is verified on the host;
+    so does a device topology's detect()."""
+    code = (
+        "import torch\n"
+        "from cometbft_tpu_torch.crypto import faults, purepy\n"
+        "ran = []\n"
+        "purepy.ed25519_verify = lambda *a: ran.append(a)\n"
+        "from cometbft_tpu_torch.crypto.scheduler import VerifyScheduler\n"
+        "from cometbft_tpu_torch.crypto.supervisor import BackendSupervisor\n"
+        "from cometbft_tpu_torch.crypto.cuda.topology import DeviceTopology\n"
+        "faults.install(name='faulty-gpu', inner='gpu')\n"
+        "cases = {\n"
+        "    'supervisor gpu': lambda: BackendSupervisor('gpu', audit_pct=100, audit_sync=True),\n"
+        "    'supervisor default': BackendSupervisor,\n"
+        "    'supervisor faulty gpu': lambda: BackendSupervisor('faulty-gpu'),\n"
+        "    'scheduler gpu': lambda: VerifyScheduler('gpu'),\n"
+        "    'scheduler default': VerifyScheduler,\n"
+        "    'detect': DeviceTopology.detect,\n"
+        "}\n"
+        "for name, fn in cases.items():\n"
+        "    try:\n"
+        "        fn()\n"
+        "        print(name, 'built')\n"
+        "    except RuntimeError as e:\n"
+        "        print(name, 'raised', 'CUDA' in str(e))\n"
+        "print('AVAILABLE', torch.cuda.is_available(), 'VERIFIED', len(ran))\n"
+    )
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.splitlines()
+    assert lines[-1] == "AVAILABLE False VERIFIED 0", r.stdout
+    assert len(lines) == 7 and all(line.endswith(" raised True") for line in lines[:-1]), r.stdout
+
+
+def check_verify_plane_needs_its_kernels(tmp_path):
+    """A kernel that does not build is never answered from the CPU. With a
+    card reported present and an nvcc that fails, a supervisor or a
+    scheduler over "gpu" (or behind a fault plan) raises the build error
+    at construction; a build error that a dispatch meets later reaches
+    the caller of the supervisor, of a bare scheduler and of a scheduler
+    over a supervisor, with no CPU verdict, fallback or breaker strike."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'nvcc fatal: injected failure' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    code = (
+        "import os, torch\n"
+        f"os.environ['NVCC'] = {str(nvcc)!r}\n"
+        "from cometbft_tpu_torch.crypto import batch, ed25519, faults, purepy\n"
+        "from cometbft_tpu_torch.crypto.cuda import build\n"
+        f"build.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
+        "ran = []\n"
+        "purepy.ed25519_verify = lambda *a: ran.append(a)\n"
+        "from cometbft_tpu_torch.crypto import scheduler, supervisor\n"
+        "from cometbft_tpu_torch.crypto.cuda.topology import DeviceTopology\n"
+        "from cometbft_tpu_torch.libs.metrics import Registry\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "faults.install(name='faulty-gpu', inner='gpu')\n"
+        "cases = {\n"
+        "    'supervisor gpu': lambda: supervisor.BackendSupervisor('gpu'),\n"
+        "    'supervisor faulty gpu': lambda: supervisor.BackendSupervisor('faulty-gpu'),\n"
+        "    'scheduler gpu': lambda: scheduler.VerifyScheduler('gpu'),\n"
+        "}\n"
+        "for name, fn in cases.items():\n"
+        "    try:\n"
+        "        fn()\n"
+        "        print(name, 'built')\n"
+        "    except build.BuildError as e:\n"
+        "        print(name, 'raised', 'injected failure' in str(e))\n"
+        "class LateBuild(batch.BatchVerifier):\n"
+        "    def add(self, *item): pass\n"
+        "    def verify(self): raise build.BuildError('nvcc failed for x: injected failure')\n"
+        "batch.register_backend('late-build', LateBuild)\n"
+        "k = ed25519.gen_priv_key_from_secret(b'k')\n"
+        "items = [(k.pub_key(), b'm%d' % i, k.sign(b'm%d' % i)) for i in range(4)]\n"
+        "def plane(with_scheduler, with_supervisor):\n"
+        "    sup = supervisor.BackendSupervisor('late-build', audit_pct=100, audit_sync=True,\n"
+        "        hedge_pct=0, metrics=supervisor.Metrics(Registry()), topology=DeviceTopology.virtual(1))\n"
+        "    sched = scheduler.VerifyScheduler('late-build', metrics=scheduler.Metrics(Registry()),\n"
+        "        supervisor=sup if with_supervisor else None, flush_us=1000)\n"
+        "    sched.start()\n"
+        "    try:\n"
+        "        if with_scheduler:\n"
+        "            sched.submit(items, subsystem='consensus').result(30)\n"
+        "        else:\n"
+        "            sup.verify_items(items)\n"
+        "        out = 'released'\n"
+        "    except build.BuildError as e:\n"
+        "        out = 'raised %s' % ('injected failure' in str(e))\n"
+        "    sched.stop()\n"
+        "    sup.stop()\n"
+        "    return out, sup.metrics.cpu_verdicts.value(), sup.state(), sched.metrics.cpu_fallbacks.value()\n"
+        "for name, w in {'dispatch supervisor': (False, True), 'dispatch scheduler': (True, False),\n"
+        "                'dispatch scheduler over supervisor': (True, True)}.items():\n"
+        "    print(name, *plane(*w))\n"
+        "print('VERIFIED', len(ran))\n"
+    )
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.splitlines() == [
+        "supervisor gpu raised True",
+        "supervisor faulty gpu raised True",
+        "scheduler gpu raised True",
+        "dispatch supervisor raised True 0.0 healthy 0.0",
+        "dispatch scheduler raised True 0.0 healthy 0.0",
+        "dispatch scheduler over supervisor raised True 0.0 healthy 0.0",
+        "VERIFIED 0",
+    ], r.stdout + r.stderr[-2000:]
+
+
 def check_chip_smoke_fails_without_a_card(tmp_path):
     r = _run([_SMOKE])
     assert r.returncode != 0
@@ -217,5 +340,7 @@ def test_port_is_isolated_and_never_falls_back(tmp_path, monkeypatch):
         check_entry_points_default_to_the_card(tmp_path, m)
     with monkeypatch.context() as m:
         check_light_verifier_needs_the_card(tmp_path, m)
+    check_verify_plane_needs_the_card(tmp_path)
+    check_verify_plane_needs_its_kernels(tmp_path)
     check_chip_smoke_fails_without_a_card(tmp_path)
     check_chip_smoke_fails_without_the_repo(tmp_path)
