@@ -125,6 +125,27 @@ goes wrong:
                              recover it; one hang is killed by the
                              watchdog and its zombie leaves; verdicts ==
                              "cpu" throughout;
+             block execution — a genesis of the 180 validators (the
+                             commit path's keys and powers), the kvstore
+                             app behind a local proxy, MemDB state and
+                             block stores: 8 heights of 200 kvstore txs of
+                             about 100 bytes through
+                             BlockExecutor(crypto_backend="gpu").apply_block,
+                             each LastCommit of 180 precommits verified on
+                             the card (resident route) and every
+                             validator-set hash one merkle_tree launch; a
+                             val: height (4) changes one power and adds a
+                             key, so the set that signs height 6 uploads
+                             and builds its key tables again at height 7
+                             and hits at 8 (the key store's counters are
+                             checked); then the same chain over "cpu" (the
+                             native rung): every block, the final State,
+                             the app hash and every store byte-equal; a
+                             flipped LastCommit signature raises the same
+                             error on both and leaves every store as it
+                             was; each height's apply_block split
+                             (validate_block and its verify_commit,
+                             exec_block_on_proxy_app, the saves) printed;
 4. times   — host wall medians of verify_commit (resident hit, the
              keyed compact route, "cpu"; the resident miss, upload and
              table build included, apart), the flushes and
@@ -154,7 +175,13 @@ goes wrong:
              preverify flush of the 180 precommits against bare "gpu"
              and "cpu", and the four call sites' round from four threads
              through the plane against one after another on bare "gpu",
-             in turns.
+             in turns; the CPU ladder's live rung and, on it, the
+             synchronous audit's CPU check of the healthy round's 16,564
+             lanes, the 180-lane preverify flush on "cpu" and
+             _challenge_scalars at 16,384 lanes (native and the Python
+             loop in turns); the block-execution chain on "gpu" and
+             "cpu" in turns, and the card's idle share over its 8
+             heights (torch.profiler).
 
 Each phase prints its seconds ("phase:" lines).
 
@@ -165,6 +192,7 @@ without one.
 
 from __future__ import annotations
 
+import base64
 import copy
 import gc
 import hashlib
@@ -179,6 +207,10 @@ import time
 import numpy as np
 import torch
 
+from cometbft_tpu_torch import native
+from cometbft_tpu_torch.abci import types as abci_types
+from cometbft_tpu_torch.abci.client import new_local_client_creator
+from cometbft_tpu_torch.abci.kvstore import PersistentKVStoreApplication
 from cometbft_tpu_torch.crypto import batch as cryptobatch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import faults
@@ -199,8 +231,15 @@ from cometbft_tpu_torch.crypto.cuda import (
     vectors,
 )
 from cometbft_tpu_torch.evidence import verify as evidence_verify
+from cometbft_tpu_torch.libs.db import MemDB
 from cometbft_tpu_torch.light import verifier as light_verifier
 from cometbft_tpu_torch.proto.gogo import Timestamp
+from cometbft_tpu_torch.proto.keys import pub_key_to_proto
+from cometbft_tpu_torch.proxy import new_app_conns
+from cometbft_tpu_torch.state import execution as state_execution
+from cometbft_tpu_torch.state import make_genesis_state
+from cometbft_tpu_torch.state.store import Store as StateStore
+from cometbft_tpu_torch.store import BlockStore
 from cometbft_tpu_torch.proto.version import BLOCK_PROTOCOL, ConsensusVersion
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -211,7 +250,10 @@ from cometbft_tpu_torch.types.block import (
     PartSetHeader,
 )
 from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
+from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
 from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
+from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
+from cometbft_tpu_torch.types.tx import Txs
 from cometbft_tpu_torch.types.validator import Validator
 from cometbft_tpu_torch.types.validator_set import Fraction, ValidatorSet
 from cometbft_tpu_torch.types.vote import SIGNED_MSG_TYPE_PRECOMMIT, Vote
@@ -1821,7 +1863,7 @@ def verify_plane_path(w, commit, window, window_want, mixed, per_call):
           f"one scheduler over one supervisor over \"gpu\" == cpu; {int(requests)} requests in {dispatches} flushes "
           f"{json.dumps(flushes)} (reasons {json.dumps({k: v for k, v in reasons.items() if v})}); "
           f"supervisor {state}, {json.dumps(stats)}; round {round_s * 1e3:.1f} ms, three-curve flush "
-          f"{mixed_s * 1e3:.1f} ms host wall (100% synchronous CPU audit included)")
+          f"{mixed_s * 1e3:.1f} ms host wall (100% synchronous CPU audit included, CPU rung {native.rung()})")
 
 
 class OneShotPlan(faults.FaultPlan):
@@ -1932,6 +1974,242 @@ def verify_plane_faults_path(vals, commit, per_call):
         print(f"main: verify plane faults: {line}")
 
 
+# --- block execution ------------------------------------------------------------
+
+BLOCK_HEIGHTS = 8
+BLOCK_TXS = 200  # kvstore txs a block, about BLOCK_TX_BYTES each
+BLOCK_TX_BYTES = 100
+# the val: txs at this height change the set that signs height 6's commit,
+# which height 7's LastCommit carries: the key tables are built again there
+VAL_TX_HEIGHT = 4
+BLOCK_T0 = 1_760_000_000
+
+
+def block_keys():
+    """The commit path's 180 keys and powers (make_valset_and_commit's
+    seeds), and one new key for the val: height."""
+    rng = np.random.default_rng(SEED)
+    privs = [ed.gen_priv_key_from_secret(b"cosmoshub-val-%d" % i) for i in range(N_VALIDATORS)]
+    powers = [int(p) for p in rng.integers(1_000, 5_000_000, N_VALIDATORS)]
+    return privs, powers, ed.gen_priv_key_from_secret(b"cosmoshub-val-new")
+
+
+def block_txs(height: int, privs, new_priv):
+    """BLOCK_TXS seeded key=value txs of BLOCK_TX_BYTES; at VAL_TX_HEIGHT
+    also a val: tx that changes the power of one validator and one that
+    adds ``new_priv``."""
+    rng = np.random.default_rng([SEED, height])
+    txs = []
+    for i in range(BLOCK_TXS):
+        key = b"h%d-k%03d=" % (height, i)
+        txs.append(key + rng.bytes((BLOCK_TX_BYTES - len(key)) // 2).hex().encode())
+    if height == VAL_TX_HEIGHT:
+        for pk, power in ((privs[3].pub_key().bytes(), 3_000_000), (new_priv.pub_key().bytes(), 2_500_000)):
+            txs.append(PersistentKVStoreApplication.make_val_set_change_tx(base64.b64encode(pk).decode(), power))
+    return txs
+
+
+class BlockChain:
+    """The genesis of ``privs``, the kvstore app behind a local proxy,
+    MemDB state and block stores, and a BlockExecutor over ``backend``."""
+
+    def __init__(self, backend, privs, powers, new_priv):
+        self.on_card = backend != "cpu"
+        self.by_addr = {k.pub_key().address(): k for k in privs + [new_priv]}
+        gvs = [GenesisValidator(k.pub_key().address(), k.pub_key(), p, f"val-{i}")
+               for i, (k, p) in enumerate(zip(privs, powers))]
+        self.genesis = GenesisDoc(genesis_time=Timestamp(BLOCK_T0, 0), chain_id=CHAIN_ID, validators=gvs)
+        self.state = make_genesis_state(self.genesis)
+        self.state_db, self.block_db, self.app_db = MemDB(), MemDB(), MemDB()
+        self.state_store = StateStore(self.state_db)
+        self.state_store.save(self.state)
+        self.block_store = BlockStore(self.block_db)
+        self.conns = new_app_conns(new_local_client_creator(PersistentKVStoreApplication(self.app_db)))
+        self.conns.start()
+        self.conns.consensus().init_chain_sync(abci_types.RequestInitChain(
+            time=self.genesis.genesis_time, chain_id=CHAIN_ID, initial_height=1,
+            validators=[abci_types.ValidatorUpdate(pub_key_to_proto(v.pub_key), v.voting_power)
+                        for v in self.state.validators.validators],
+        ))
+        self.executor = state_execution.BlockExecutor(self.state_store, self.conns.consensus(),
+                                                      crypto_backend=backend)
+        self.last_commit = Commit(0, 0, BlockID(), [])
+
+    def sign_commit(self, block_id, height: int, vals) -> Commit:
+        """Every validator precommits, each at its own time."""
+        commit = Commit(height=height, round=0, block_id=block_id)
+        for i, v in enumerate(vals.validators):
+            ts = Timestamp(BLOCK_T0 + 6 * height, ((height * 7919 + i * 104729) % 999_983) * 1000)
+            commit.signatures.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, b""))
+        for i, v in enumerate(vals.validators):
+            commit.signatures[i].signature = self.by_addr[v.address].sign(commit.vote_sign_bytes(CHAIN_ID, i))
+        return commit
+
+    def propose(self, height: int, txs):
+        proposer = self.state.validators.get_proposer().address
+        block, _ = self.executor.create_proposal_block(height, self.state, self.last_commit, proposer)
+        block.data.txs = Txs(list(txs))
+        block.header.data_hash = b""
+        block.fill_header()
+        block._hash = None
+        parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+        return block, parts, BlockID(block.hash(), parts.header())
+
+    def apply(self, block, parts, block_id) -> dict:
+        """apply_block, then the block and its seen commit into the block
+        store (nothing is stored when apply_block raises); the split of
+        its host wall time, in ms."""
+        split = {"validate": 0.0, "verify": 0.0, "exec": 0.0, "saves": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[key] += (time.perf_counter() - t0) * 1e3
+            return run
+
+        patches = [
+            (state_execution, "validate_block", timed("validate", state_execution.validate_block)),
+            (state_execution, "exec_block_on_proxy_app", timed("exec", state_execution.exec_block_on_proxy_app)),
+            (ValidatorSet, "verify_commit", timed("verify", ValidatorSet.verify_commit)),
+            (self.state_store, "save_abci_responses", timed("saves", self.state_store.save_abci_responses)),
+            (self.state_store, "save", timed("saves", self.state_store.save)),
+        ]
+        saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            t0 = time.perf_counter()
+            self.state, _ = self.executor.apply_block(self.state, block_id, block)
+            if self.on_card:
+                torch.cuda.synchronize()
+            split["apply"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            for obj, name, old in saved:
+                if old is None:
+                    delattr(obj, name)
+                else:
+                    setattr(obj, name, old)
+        commit = self.sign_commit(block_id, block.header.height, self.state.last_validators)
+        t0 = time.perf_counter()
+        self.block_store.save_block(block, parts, commit)
+        split["save_block"] = (time.perf_counter() - t0) * 1e3
+        split["other"] = split["apply"] - split["validate"] - split["exec"] - split["saves"]
+        self.last_commit = commit
+        return split
+
+    def dump(self):
+        return tuple(list(db.iterator()) for db in (self.state_db, self.block_db, self.app_db))
+
+    def stop(self):
+        self.conns.stop()
+
+
+def run_block_chain(backend, keys, blocks=None, profile_heights=False):
+    """The BLOCK_HEIGHTS heights on ``backend``: each height's block is
+    proposed by this chain (validator-set hashes on the backend's device)
+    and must equal ``blocks[h]`` when given. Returns (chain, {height:
+    block bytes}, {height: split}, key store stats per height)."""
+    privs, powers, new_priv = keys
+    chain = BlockChain(backend, privs, powers, new_priv)
+    out_blocks, splits, store = {}, {}, {}
+    for h in range(1, BLOCK_HEIGHTS + 1):
+        block, parts, block_id = chain.propose(h, block_txs(h, privs, new_priv))
+        out_blocks[h] = block.encode()
+        if blocks is not None:
+            check(out_blocks[h] == blocks[h], f"block execution: the {backend!r} block at height {h} differs")
+        before = store_stats()
+        splits[h] = chain.apply(block, parts, block_id)
+        after = store_stats()
+        store[h] = {k: after[k] - before[k] for k in ("uploads", "hits", "misses")}
+    return chain, out_blocks, splits, store
+
+
+def corrupt_last_commit(chain, height: int, keys, idx: int = 11):
+    """Height ``height``'s block with one LastCommit signature flipped, the
+    header refilled; apply_block's outcome, and whether every store
+    stayed as it was."""
+    block, _, _ = chain.propose(height, block_txs(height, keys[0], keys[2]))
+    cs = block.last_commit.signatures[idx]
+    cs.signature = flip(cs.signature, 3, 0x20)
+    block.last_commit._hash = None
+    block.header.last_commit_hash = b""
+    block.fill_header()
+    block._hash = None
+    parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+    block_id = BlockID(block.hash(), parts.header())
+    before, state_before = chain.dump(), chain.state.encode()
+    got = outcome(lambda: chain.apply(block, parts, block_id))
+    return got, chain.dump() == before and chain.state.encode() == state_before
+
+
+def print_block_splits(label: str, splits: dict, store: dict, card: str) -> None:
+    for h, t in splits.items():
+        ks = f"; key store uploads {store[h]['uploads']}, hits {store[h]['hits']}" if store else ""
+        print(f"block: height {h} on {label}: apply_block {t['apply']:.3f} ms host wall (validate_block "
+              f"{t['validate']:.3f}, of which verify_commit {t['verify']:.3f}; exec_block_on_proxy_app "
+              f"{t['exec']:.3f}; state saves {t['saves']:.3f}; update_state, app commit and events "
+              f"{t['other']:.3f}), then save_block {t['save_block']:.3f} ms{ks} [{card}]")
+
+
+def block_execution_path(per_call):
+    """Block execution: a genesis of the 180 validators, BLOCK_HEIGHTS
+    heights of BLOCK_TXS kvstore txs through BlockExecutor over "gpu" (each
+    LastCommit verified on the card, the validator-set hashes one
+    merkle_tree launch each), a val: height that changes the signing set
+    (its key tables built again, then hit), then the same chain over
+    "cpu" (the native rung): every block, the final State, the app hash
+    and every store byte-equal; a flipped LastCommit signature raises the
+    same error on both and leaves every store as it was."""
+    card = card_line()
+    keys = block_keys()
+    keystore.default_store().invalidate()  # the genesis set goes up on this path
+    gpu, blocks, gpu_splits, store = run_block_chain("gpu", keys)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    cpu, _, cpu_splits, _ = run_block_chain("cpu", keys, blocks=blocks)
+    check(gpu.state.encode() == cpu.state.encode(), "block execution: the final State differs between gpu and cpu")
+    check(gpu.state.app_hash == cpu.state.app_hash and len(gpu.state.app_hash) == 8,
+          "block execution: the app hash differs")
+    for h in range(1, BLOCK_HEIGHTS + 1):
+        for what, load in (("block", BlockStore.load_block), ("meta", BlockStore.load_block_meta),
+                           ("seen commit", BlockStore.load_seen_commit), ("commit", BlockStore.load_block_commit)):
+            if what == "commit" and h == BLOCK_HEIGHTS:
+                continue
+            check(load(gpu.block_store, h).encode() == load(cpu.block_store, h).encode(),
+                  f"block execution: the stored {what} at height {h} differs")
+    check(gpu.dump() == cpu.dump(), "block execution: the stores differ between gpu and cpu")
+    n_vals = len(gpu.state.validators.validators)
+    check(n_vals == N_VALIDATORS + 1, f"block execution: the val: height left {n_vals} validators")
+    # the LastCommit at h is signed by the set of h - 1: it is uploaded at 2, hit
+    # through 6, the changed set (first signing at 6) uploaded at 7 and hit at 8
+    want_uploads = {h: 1 if h in (2, VAL_TX_HEIGHT + 3) else 0 for h in range(1, BLOCK_HEIGHTS + 1)}
+    check({h: s["uploads"] for h, s in store.items()} == want_uploads,
+          f"block execution: key store uploads per height {store}, want {want_uploads}")
+    check(all(store[h]["hits"] >= 1 for h in range(3, BLOCK_HEIGHTS + 1) if not want_uploads[h]),
+          f"block execution: a height after an upload missed the key store: {store}")
+    reset_before = counts()
+    got_gpu, kept_gpu = corrupt_last_commit(gpu, BLOCK_HEIGHTS + 1, keys)
+    got_cpu, kept_cpu = corrupt_last_commit(cpu, BLOCK_HEIGHTS + 1, keys)
+    check(got_gpu == got_cpu and got_gpu[0] == "ValueError" and got_gpu[1].startswith("wrong signature (#11)"),
+          f"block execution: a flipped LastCommit signature gave {got_gpu} on gpu, {got_cpu} on cpu")
+    check(kept_gpu and kept_cpu, "block execution: a rejected block changed a store")
+    check(counts()["ed25519_verify_resident"] > reset_before["ed25519_verify_resident"],
+          "block execution: the flipped commit was not verified on the card")
+    per_call["block execution"] = launched
+    print(f"main: block execution: {BLOCK_HEIGHTS} heights of {BLOCK_TXS} txs of about {BLOCK_TX_BYTES} bytes, "
+          f"{N_VALIDATORS} validators, a val: height at {VAL_TX_HEIGHT} ({n_vals} validators after it), through "
+          f"BlockExecutor over \"gpu\" == \"cpu\" (CPU rung {native.rung()}): every block, State, app hash "
+          f"{gpu.state.app_hash.hex()} and store byte-equal; key store per height {json.dumps(store)}; a flipped "
+          f"LastCommit signature: {got_gpu[0]} on both, stores unchanged; launches {json.dumps(launched)}")
+    print_block_splits('"gpu"', gpu_splits, store, card)
+    print_block_splits('"cpu"', cpu_splits, {}, card)
+    gpu.stop()
+    cpu.stop()
+
+
 def labels_of(counter) -> dict:
     return {",".join(f"{k}={v}" for k, v in sorted(c._labels.items())): c.value()
             for c in counter._series() if c._labels}
@@ -1956,6 +2234,7 @@ PATHS = {  # path -> the kernels it must launch
     "verify plane": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree", "secp256k1_verify",
                      "sr25519_verify"),
     "verify plane faults": ("ed25519_verify_resident", "ed25519_verify_compact"),
+    "block execution": ("ed25519_verify_resident", "ed25519_key_tables", "merkle_tree"),
 }
 
 
@@ -1987,6 +2266,7 @@ def run_main_path(vals, block_id, commit, svals, sblock_id, scommit, sr_lanes, w
         "evidence": lambda pc: evidence_path(world, pc),
         "verify plane": lambda pc: verify_plane_path(world, commit, items, want, mixed, pc),
         "verify plane faults": lambda pc: verify_plane_faults_path(vals, commit, pc),
+        "block execution": lambda pc: block_execution_path(pc),
     }
     total = {k: 0 for k in counts()}
     per_call = {}
@@ -2601,9 +2881,11 @@ def time_verify_plane(w, commit, window, card: str) -> None:
               f"flushes; {sup.metrics.triage_runs.value():.0f} triage runs, "
               f"{faults_total(sup.metrics.triage_offenders):.0f} bad signatures confirmed on the CPU [{card}]")
         m = node_sup.metrics
+        caps = (f"at most {supervisor.AUDIT_MAX_LANES} lanes each" if supervisor.lane_caps_apply()
+                else f"every lane: CPU rung {native.rung()}")
         print(f"e2e: verify plane round at node defaults: {int(node.metrics.requests.value())} requests in "
-              f"{node.n_dispatches} flushes; {m.audits.value():.0f} background audits (at most "
-              f"{supervisor.AUDIT_MAX_LANES} lanes each), {m.hedge_fires.value():.0f} hedges fired, "
+              f"{node.n_dispatches} flushes; {m.audits.value():.0f} background audits ({caps}), "
+              f"{m.hedge_fires.value():.0f} hedges fired, "
               f"{m.hedge_wins.with_labels(winner='cpu').value():.0f} won by the CPU, "
               f"{m.cpu_verdicts.value():.0f} CPU-released batches [{card}]")
         print(f"e2e: verify plane rounds above: {full['n']} full collections of the interpreter, "
@@ -2658,6 +2940,89 @@ def time_sr_end_to_end(sr_lanes, sr_timing, card: str) -> None:
           f"(packing {packing * 1e3:.3f} ms) = {SR_WINDOW / wall:.0f} signatures/s [{card}]")
 
 
+def time_block_execution(card: str) -> None:
+    """The block-execution chain on "gpu" and on "cpu", a fresh chain a
+    run, in turns (the validator sets stay resident in the key store
+    from the main path's run), and the card's idle share over the
+    BLOCK_HEIGHTS heights of one more "gpu" run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = block_keys()
+    runs = {"gpu": [], "cpu": []}
+    for turn in range(4):
+        for backend in (("gpu", "cpu") if turn % 2 == 0 else ("cpu", "gpu")):
+            t0 = time.perf_counter()
+            chain, _, splits, _ = run_block_chain(backend, keys)
+            wall = (time.perf_counter() - t0) * 1e3
+            chain.stop()
+            runs[backend].append((wall, {k: sum(t[k] for t in splits.values()) for k in splits[1]}))
+    for backend, got in runs.items():
+        wall = statistics.median(w for w, _ in got)
+        split = {k: statistics.median(t[k] for _, t in got) for k in got[0][1]}
+        print(f"e2e: block execution on \"{backend}\": {BLOCK_HEIGHTS} heights p50 {wall:.3f} ms host wall "
+              f"(proposing and signing included); apply_block {split['apply']:.3f} ms over the heights "
+              f"(validate_block {split['validate']:.3f}, verify_commit {split['verify']:.3f}, "
+              f"exec_block_on_proxy_app {split['exec']:.3f}, state saves {split['saves']:.3f}, "
+              f"other {split['other']:.3f}), save_block {split['save_block']:.3f}; 4 runs in turns, "
+              f"CPU rung {native.rung()} [{card}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chain, _, splits, _ = run_block_chain("gpu", keys)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    chain.stop()
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if busy_us <= 0:
+        print(f"profile: block execution, {BLOCK_HEIGHTS} heights on \"gpu\": device time not measured "
+              f"(the trace holds no device events) [{card}]")
+        return
+    top = sorted(events, key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)[:3]
+    shares = ", ".join(f"{e.key[:40]} {e.self_device_time_total / busy_us:.1%}" for e in top)
+    apply_ms = sum(t["apply"] for t in splits.values())
+    print(f"profile: block execution, {BLOCK_HEIGHTS} heights on \"gpu\": wall {wall:.3f} ms (apply_block "
+          f"{apply_ms:.3f}), device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / wall:.1%} of the "
+          f"heights ({1 - busy_us / 1e3 / apply_ms:.1%} of apply_block); device time: {shares} [{card}]")
+
+
+def time_native_rung(w, commit, window, card: str) -> None:
+    """The CPU ladder's live rung, and on it the CPU work that PERF.md
+    timed on pure Python: the healthy verify-plane round's synchronous
+    audit (its CPU check of the round's window and precommits), the
+    180-lane preverify flush on "cpu", and the host challenge
+    h = SHA-512(R || A || M) mod L of 16,384 lanes, native and the Python
+    loop in turns."""
+    print(f"native: CPU rung {native.rung()} ({native.why()}); {json.dumps(native.stats())} [{card}]")
+    lanes = window + precommits(w["vals"], commit)
+    audit = wall_ms(lambda: flush(lanes, "cpu"), runs=3)
+    pre = precommits(w["vals"], commit)
+    t_pre = wall_ms(lambda: flush(pre, "cpu"), runs=20)
+    print(f"p6: the synchronous audit's CPU check of {len(lanes)} lanes (the healthy round's window and "
+          f"precommits) p50 {audit:.3f} ms host wall; the {len(pre)}-lane preverify flush on \"cpu\" p50 "
+          f"{t_pre:.3f} ms; CPU rung {native.rung()} [{card}]")
+    pk_arr, sig_arr, valid = ed25519_batch._parse_inputs([pk.bytes() for pk, _, _ in window],
+                                                         [sig for _, _, sig in window])
+    msgs = [msg for _, msg, _ in window]
+    floor = ed25519_batch.NATIVE_CHALLENGE_MIN_LANES
+
+    def python_loop():
+        ed25519_batch.NATIVE_CHALLENGE_MIN_LANES = 1 << 30
+        try:
+            return ed25519_batch._challenge_scalars(pk_arr, sig_arr, msgs, valid)
+        finally:
+            ed25519_batch.NATIVE_CHALLENGE_MIN_LANES = floor
+
+    check(np.array_equal(ed25519_batch._challenge_scalars(pk_arr, sig_arr, msgs, valid), python_loop()),
+          "the native challenges differ from the Python loop")
+    t = wall_ms_turns({
+        "native": lambda: ed25519_batch._challenge_scalars(pk_arr, sig_arr, msgs, valid),
+        "python loop": python_loop,
+    }, runs=8, turns=4)
+    for label, (med, lo, hi) in t.items():
+        print(f"p6: _challenge_scalars of {len(msgs)} lanes, {label:11s} p50 {med:.3f} ms host wall (min {lo:.3f}, "
+              f"max {hi:.3f}), {os.cpu_count()} host cores, in turns [{card}]")
+
+
 def profile_commit(vals, block_id, commit, card: str, calls: int = 10, label: str = "resident, hit") -> None:
     """The device's busy and idle share over back-to-back verify_commit
     calls, from a torch.profiler trace of the card."""
@@ -2690,6 +3055,7 @@ def main() -> int:
         return 2
     card = card_line()
     print(card)
+    print(f"native: CPU rung {native.rung()} ({native.why()}) [{card}]")
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
 
@@ -2752,6 +3118,10 @@ def main() -> int:
     t0 = time.perf_counter()
     time_verify_plane(world, commit, window, card)
     print(f"time: the verify plane's timings took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    time_native_rung(world, commit, window, card)
+    time_block_execution(card)
+    print(f"time: the native rung's and block execution's timings took {time.perf_counter() - t0:.1f} s")
     s_window, _ = secp_window_items(svals, scommit)
     t0 = time.perf_counter()
     time_secp_end_to_end(svals, sblock_id, scommit, s_window, card)

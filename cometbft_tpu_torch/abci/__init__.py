@@ -1,1 +1,1 @@
-"""ABCI types that the port's evidence needs (reference: cometbft_tpu/abci)."""
+"""ABCI: message types, the Application interface, clients and the kvstore app (reference: cometbft_tpu/abci)."""

@@ -3,8 +3,8 @@
 ``verify()`` returns (all_ok, per-signature mask) with each verdict equal
 to the serial ``PubKey.verify_signature``. Two backends:
 
-* ``"cpu"`` — the pure-Python verifier, one signature at a time; the
-  semantics ground truth.
+* ``"cpu"`` — the CPU ladder (the native OpenSSL rung, else pure
+  Python); the semantics ground truth.
 * ``"gpu"`` — the batch is split by curve, as the reference's
   batch.py:287-348 does, and every part goes to the card, whatever its
   size. The reference routes Ed25519 batches below 1,024 and secp256k1
@@ -106,14 +106,25 @@ class _Collecting(BatchVerifier):
 
 
 class CPUBatchVerifier(_Collecting):
-    """Serial CPU verification — the port's oracle."""
+    """CPU verification, the port's oracle (reference batch.py:105).
+    Ed25519 entries go through ``ed25519.verify_many``: one native call
+    over up to 16 threads when the native rung is live, pure Python
+    otherwise. Other key types verify one by one."""
 
     def verify(self) -> Tuple[bool, List[bool]]:
         items = self._take()
         if not items:
             return False, []
-        mask = [bool(pk.verify_signature(msg, sig)) for pk, msg, sig in items]
-        return all(mask), mask
+        mask: List[Optional[bool]] = [None] * len(items)
+        ed_idxs = [i for i, (pk, _, _) in enumerate(items) if isinstance(pk, ed.PubKeyEd25519)]
+        if ed_idxs:
+            for i, ok in zip(ed_idxs, ed.verify_many([items[i] for i in ed_idxs])):
+                mask[i] = ok
+        final = [
+            bool(m) if m is not None else bool(pk.verify_signature(msg, sig))
+            for m, (pk, msg, sig) in zip(mask, items)
+        ]
+        return all(final), final
 
 
 class GPUBatchVerifier(_Collecting):

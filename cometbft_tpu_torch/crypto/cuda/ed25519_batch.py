@@ -73,6 +73,7 @@ from cometbft_tpu_torch.crypto.cuda.scalar import NUM_DIGITS, digits_msb_first
 
 WIRE_ROWS = 128
 MAX_CHUNK = 8192  # per-curve default chunk cap; CBFT_TPU_MAX_CHUNK overrides
+NATIVE_CHALLENGE_MIN_LANES = 256  # the reference's floor for the native challenges (ed25519_batch.py:490)
 
 # launches of each CUDA kernel (the plain versions do not count)
 LAUNCHES = 0  # ed25519_verify_compact
@@ -124,8 +125,21 @@ def _challenge_scalars(
     pk_arr: np.ndarray, sig_arr: np.ndarray, msgs, valid: np.ndarray
 ) -> np.ndarray:
     """h = SHA-512(R ‖ A ‖ M) mod L per valid lane → u8[B,32] little-endian
-    (zero on invalid lanes)."""
+    (zero on invalid lanes). At 256 lanes and up on a multicore host, one
+    native call splits the batch over threads
+    (``native.ed25519_challenges``), as the reference's
+    crypto/tpu/ed25519_batch.py:476-510 does; below that, on one core, or
+    without the native rung, the hashlib loop below, which stays the
+    parity oracle."""
     n = len(msgs)
+    if (os.cpu_count() or 1) > 1 and n >= NATIVE_CHALLENGE_MIN_LANES:
+        from cometbft_tpu_torch import native
+
+        raw = native.ed25519_challenges(
+            pk_arr.tobytes(), sig_arr[:, :32].tobytes(), msgs, [bool(v) for v in valid]
+        )
+        if raw is not None:
+            return np.frombuffer(raw, np.uint8).reshape(n, 32).copy()
     h_arr = np.zeros((n, 32), np.uint8)
     sha = hashlib.sha512
     for i in range(n):

@@ -9,6 +9,9 @@ reference's OpenSSL-backed CPU verifier.
 
 from __future__ import annotations
 
+import secrets
+
+from cometbft_tpu_torch import native
 from cometbft_tpu_torch.crypto import PrivKey, PubKey, address_hash, purepy, sha256
 
 KEY_TYPE = "ed25519"
@@ -36,6 +39,10 @@ class PubKeyEd25519(PubKey):
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
         if len(sig) != SIGNATURE_SIZE:
             return False
+        mask = native.ed25519_verify_batch([self._bytes], [msg], [sig], nthreads=1)
+        if mask is not None:
+            return mask[0]
+        native.count_purepy()
         return purepy.ed25519_verify(self._bytes, msg, sig)
 
     def __repr__(self) -> str:
@@ -47,7 +54,8 @@ class PrivKeyEd25519(PrivKey):
         # accept 64-byte Go-style (seed||pub) or 32-byte seed
         if len(key_bytes) == SEED_SIZE:
             seed = bytes(key_bytes)
-            key_bytes = seed + purepy.ed25519_public_from_seed(seed)
+            pub = native.ed25519_pub_from_seed(seed)
+            key_bytes = seed + (pub if pub is not None else purepy.ed25519_public_from_seed(seed))
         if len(key_bytes) != PRIVATE_KEY_SIZE:
             raise ValueError(f"ed25519 privkey must be {PRIVATE_KEY_SIZE} bytes")
         self._bytes = bytes(key_bytes)
@@ -57,6 +65,9 @@ class PrivKeyEd25519(PrivKey):
 
     def sign(self, msg: bytes) -> bytes:
         """Reference: crypto/ed25519/ed25519.go:57."""
+        sig = native.ed25519_sign(self._bytes[:SEED_SIZE], msg)
+        if sig is not None:
+            return sig
         return purepy.ed25519_sign(
             self._bytes[:SEED_SIZE], self._bytes[SEED_SIZE:], msg
         )
@@ -66,6 +77,30 @@ class PrivKeyEd25519(PrivKey):
 
     def type(self) -> str:
         return KEY_TYPE
+
+
+def verify_many(items) -> list:
+    """The CPU batch path over (PubKeyEd25519, msg, sig) triples
+    (reference crypto/ed25519.py:156 verify_many): one native call over
+    up to 16 threads when the native rung is live, else pure Python lane
+    by lane. Each verdict equals ``verify_signature``'s."""
+    if not items:
+        return []
+    mask = native.ed25519_verify_batch(
+        [pk.bytes() for pk, _, _ in items], [m for _, m, _ in items], [s for _, _, s in items]
+    )
+    if mask is not None:
+        return mask
+    native.count_purepy(len(items))
+    return [
+        len(s) == SIGNATURE_SIZE and purepy.ed25519_verify(pk.bytes(), m, s)
+        for pk, m, s in items
+    ]
+
+
+def gen_priv_key() -> PrivKeyEd25519:
+    """Reference: GenPrivKey — a seed from the OS's CSPRNG."""
+    return PrivKeyEd25519(secrets.token_bytes(SEED_SIZE))
 
 
 def gen_priv_key_from_secret(secret: bytes) -> PrivKeyEd25519:

@@ -354,3 +354,58 @@ def _keypath_to_keys(path: str) -> List[bytes]:
         else:
             keys.append(urllib.parse.unquote(part).encode())
     return keys
+
+
+@dataclass
+class ProofOp:
+    type: str
+    key: bytes
+    data: bytes
+
+    def encode(self) -> bytes:
+        """proto crypto.ProofOp {string type=1, bytes key=2, bytes data=3}."""
+        out = b""
+        if self.type:
+            out += protoio.field_string(1, self.type)
+        out += protoio.field_bytes(2, self.key)
+        out += protoio.field_bytes(3, self.data)
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ProofOp":
+        r = protoio.WireReader(data)
+        out = cls("", b"", b"")
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.type = r.read_string()
+            elif f == 2:
+                out.key = r.read_bytes()
+            elif f == 3:
+                out.data = r.read_bytes()
+            else:
+                r.skip(wt)
+        return out
+
+
+@dataclass
+class ProofOps:
+    """proto crypto.ProofOps {repeated ProofOp ops=1} — carried in ABCI
+    query responses (abci ResponseQuery.proof_ops)."""
+
+    ops: List[ProofOp] = field(default_factory=list)
+
+    def encode(self) -> bytes:
+        return b"".join(protoio.field_message(1, op.encode()) for op in self.ops)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ProofOps":
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.ops.append(ProofOp.decode(r.read_bytes()))
+            else:
+                r.skip(wt)
+        return out

@@ -20,14 +20,18 @@ What the port leaves out, and what it adds:
   card, where the reference joins its AOT warm boot), so a ``"gpu"``
   supervisor raises there when there is no card or a kernel does not
   build, instead of serving every batch from the CPU;
-* two lane caps, sized for the port's CPU ground truth, pure Python at
-  about 3.8 ms an Ed25519 lane on the H100 host (PERF.md): a dispatch
-  of more than ``HEDGE_MAX_LANES`` (256) lanes is never hedged, since a
-  CPU side that needs seconds cannot beat a device that is merely late
-  and would hold the interpreter lock all that time; the background
-  audit of a batch of more than ``AUDIT_MAX_LANES`` (256) lanes
-  re-verifies a random sample of that many lanes. The synchronous
-  audit, which decides what is released, always checks the whole batch;
+* two lane caps that hold only while the CPU ladder stands on pure
+  Python (``native.rung() == "purepy"``: no ``cc`` or ``libcrypto``, or a
+  native build that disagreed), about 3.8 ms an Ed25519 lane on the
+  H100 host (PERF.md): then a dispatch of more than ``HEDGE_MAX_LANES``
+  (256) lanes is never hedged, since a CPU side that needs seconds
+  cannot beat a device that is merely late and would hold the
+  interpreter lock all that time, and the background audit of a batch
+  of more than ``AUDIT_MAX_LANES`` (256) lanes re-verifies a random
+  sample of that many lanes. With the native rung live, as the
+  reference, every dispatch may be hedged and every audit checks every
+  lane. The synchronous audit, which decides what is released, always
+  checks the whole batch;
 * a ``build.BuildError`` met later (a source changed under a running
   node) is raised to the caller from the dispatch, the indexed route and
   triage, never classified as a device fault or answered from the CPU;
@@ -159,7 +163,8 @@ DEFAULT_PROBE_MAX_MS = 60_000
 DEFAULT_HEDGE_PCT = 200
 DEFAULT_RETRY_MS = 25
 DEFAULT_CHUNK_RECOVER_N = 32
-# about a second of the pure-Python ground truth (3.8 ms a lane)
+# about a second of the pure-Python ground truth (3.8 ms a lane); they
+# apply only while the CPU ladder stands on pure Python (lane_caps_apply)
 HEDGE_MAX_LANES = 256
 AUDIT_MAX_LANES = 256
 _AUDIT_QUEUE_CAP = 64  # batches; beyond this, drop-and-count (see audit_drops)
@@ -170,6 +175,14 @@ Item = Tuple[PubKey, bytes, bytes]
 # the scheduler's demux passes these so triage can attribute offending
 # signatures to the subsystem/block that submitted them
 Origin = Tuple[int, Optional[str], Optional[int]]
+
+
+def lane_caps_apply() -> bool:
+    """True while the CPU ground truth is pure Python, the only rung on
+    which ``HEDGE_MAX_LANES`` and ``AUDIT_MAX_LANES`` hold."""
+    from cometbft_tpu_torch import native
+
+    return native.rung() != native.NATIVE
 
 
 class WatchdogTimeout(RuntimeError):
@@ -1191,7 +1204,9 @@ class BackendSupervisor:
         overrunning predicted-p99 × hedge_pct/100 races a parallel CPU
         verify and the first usable mask wins; the loser is audited for
         divergence when it completes. → (mask, source)."""
-        hedged = self._hedge_pct > 0 and len(items) <= HEDGE_MAX_LANES
+        hedged = self._hedge_pct > 0 and (
+            len(items) <= HEDGE_MAX_LANES or not lane_caps_apply()
+        )
         pred = dom.latency_model.predict_p99(len(items)) if hedged else None
         h = self._start_device(dom, items, route=route)
         deadline = h.t0 + self._timeout_s
@@ -1926,7 +1941,7 @@ class BackendSupervisor:
     def _enqueue_audit(
         self, dom: _Domain, items: List[Item], mask: List[bool]
     ) -> None:
-        if len(items) > AUDIT_MAX_LANES:
+        if len(items) > AUDIT_MAX_LANES and lane_caps_apply():
             with self._lock:
                 lanes = sorted(self._rng.sample(range(len(items)), AUDIT_MAX_LANES))
             items = [items[i] for i in lanes]

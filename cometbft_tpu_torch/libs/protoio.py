@@ -27,6 +27,11 @@ def encode_uvarint(n: int) -> bytes:
             return bytes(out)
 
 
+def encode_varint_zigzag(n: int) -> bytes:
+    """Zigzag-encoded signed varint (sint64)."""
+    return encode_uvarint((n << 1) ^ (n >> 63) if n >= 0 else ((-n) << 1) - 1)
+
+
 def encode_varint(n: int) -> bytes:
     """Two's-complement signed varint (int64/int32 fields)."""
     if n < 0:

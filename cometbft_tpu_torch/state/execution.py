@@ -1,0 +1,410 @@
+"""BlockExecutor — drives a decided block through the ABCI app.
+
+Reference: cometbft_tpu/state/execution.py; state/execution.go — CreateProposalBlock :94, ValidateBlock
+:117, ApplyBlock :131 (validate → execBlockOnProxyApp :259 → save ABCI
+responses → updateState :403 → Commit :211 with the mempool locked →
+prune), fireEvents :200. Crash points (libs/fail) are planted at the same
+milestones as the reference (:149-196) so recovery tests can kill the
+process between every persistence step.
+
+``crypto_backend`` defaults to ``"gpu"``: every LastCommit is verified on
+the card (the resident route: the set's keys stay in the key store as
+comb tables, built again when the set changes) and every validator-set
+hash of the path is one ``merkle_tree`` launch. The executor prepares
+its backend when it is built (``crypto.batch.prepare_backend``), so
+``"gpu"`` without a card, or with a kernel that does not build, raises
+there; nothing on the path gives way to the CPU. Tests pass ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from cometbft_tpu_torch.abci import types as abci
+from cometbft_tpu_torch.crypto import batch as cryptobatch
+from cometbft_tpu_torch.libs import fail
+from cometbft_tpu_torch.libs.log import Logger, new_nop_logger
+from cometbft_tpu_torch.state import State, median_time
+from cometbft_tpu_torch.state.store import ABCIResponses, Store
+from cometbft_tpu_torch.state.validation import validate_block
+from cometbft_tpu_torch.types.block import Block, BlockID, Commit
+from cometbft_tpu_torch.types.event_bus import (
+    EventDataNewBlock,
+    EventDataNewBlockHeader,
+    EventDataTx,
+    EventDataValidatorSetUpdates,
+    NopEventBus,
+)
+from cometbft_tpu_torch.proto.keys import pub_key_from_proto
+from cometbft_tpu_torch.types.validator import Validator
+from cometbft_tpu_torch.types.validator_set import ValidatorSet
+
+
+class EmptyMempool:
+    """No-op mempool (reference: mock mempool used by blocksync/tests)."""
+
+    def lock(self) -> None:
+        pass
+
+    def unlock(self) -> None:
+        pass
+
+    def size(self) -> int:
+        return 0
+
+    def flush_app_conn(self) -> None:
+        pass
+
+    def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int) -> List[bytes]:
+        return []
+
+    def update(self, height, txs, deliver_tx_responses, pre_check=None,
+               post_check=None) -> None:
+        pass
+
+
+class EmptyEvidencePool:
+    """Reference: sm.EmptyEvidencePool."""
+
+    def pending_evidence(self, max_bytes: int) -> Tuple[list, int]:
+        return [], 0
+
+    def add_evidence(self, ev) -> None:
+        pass
+
+    def update(self, state: State, ev_list: list) -> None:
+        pass
+
+    def check_evidence(self, ev_list: list) -> None:
+        pass
+
+
+class BlockExecutor:
+    def __init__(
+        self,
+        state_store: Store,
+        proxy_app,  # proxy.AppConnConsensus
+        mempool=None,
+        evidence_pool=None,
+        event_bus=None,
+        crypto_backend: cryptobatch.Backend = "gpu",
+        metrics=None,  # state.metrics.Metrics
+        logger: Optional[Logger] = None,
+    ):
+        from cometbft_tpu_torch.state.metrics import Metrics
+
+        self._metrics = metrics if metrics is not None else Metrics.nop()
+        self._store = state_store
+        self._proxy_app = proxy_app
+        cryptobatch.prepare_backend(crypto_backend)
+        self._crypto_backend = crypto_backend
+        self._hash_device = cryptobatch.backend_device(crypto_backend)
+        self._mempool = mempool if mempool is not None else EmptyMempool()
+        self._evpool = (
+            evidence_pool if evidence_pool is not None else EmptyEvidencePool()
+        )
+        self._event_bus = event_bus if event_bus is not None else NopEventBus()
+        self._logger = logger or new_nop_logger()
+
+    def set_event_bus(self, event_bus) -> None:
+        self._event_bus = event_bus
+
+    def store(self) -> Store:
+        return self._store
+
+    # -- proposal -----------------------------------------------------------
+
+    def create_proposal_block(
+        self, height: int, state: State, commit: Commit, proposer_addr: bytes
+    ) -> Tuple[Block, object]:
+        """Reference: state/execution.go:94-115."""
+        max_bytes = state.consensus_params.block.max_bytes
+        max_gas = state.consensus_params.block.max_gas
+
+        evidence, ev_size = self._evpool.pending_evidence(
+            state.consensus_params.evidence.max_bytes
+        )
+        max_data_bytes = max_data_bytes_for(max_bytes, ev_size, len(state.validators.validators))
+        txs = self._mempool.reap_max_bytes_max_gas(max_data_bytes, max_gas)
+        return state.make_block(
+            height, txs, commit, evidence, proposer_addr, device=self._hash_device
+        )
+
+    # -- validation ---------------------------------------------------------
+
+    def validate_block(self, state: State, block: Block) -> None:
+        """Reference: state/execution.go:117-129 (hashes + evidence pool)."""
+        validate_block(state, block, backend=self._crypto_backend)
+        self._evpool.check_evidence(block.evidence)
+
+    # -- apply --------------------------------------------------------------
+
+    def apply_block(
+        self, state: State, block_id: BlockID, block: Block
+    ) -> Tuple[State, int]:
+        """Returns (new_state, retain_height).
+        Reference: state/execution.go:131-208."""
+        self.validate_block(state, block)
+
+        import time as _time
+
+        exec_start = _time.monotonic()
+        abci_responses = exec_block_on_proxy_app(
+            self._proxy_app, block, self._store, state.initial_height, self._logger
+        )
+        self._metrics.block_processing_time.observe(
+            _time.monotonic() - exec_start
+        )
+
+        fail.fail()  # ABCI_RESPONSES not yet saved
+        self._store.save_abci_responses(block.header.height, abci_responses)
+        fail.fail()  # responses saved, state not yet updated
+
+        abci_val_updates = abci_responses.end_block.validator_updates
+        validate_validator_updates(abci_val_updates, state.consensus_params.validator)
+        validator_updates = [
+            validator_from_update(u) for u in abci_val_updates
+        ]
+
+        new_state = update_state(
+            state, block_id, block.header, abci_responses, validator_updates
+        )
+
+        # Lock mempool, commit app state, update mempool.
+        app_hash, retain_height = self._commit(new_state, block, abci_responses)
+
+        # Update evpool with the latest state.
+        self._evpool.update(new_state, block.evidence)
+        fail.fail()  # about to persist the new state
+
+        new_state.app_hash = app_hash
+        self._store.save(new_state)
+        fail.fail()  # state saved
+
+        self._fire_events(block, block_id, abci_responses, validator_updates)
+        return new_state, retain_height
+
+    def _commit(
+        self, state: State, block: Block, abci_responses: ABCIResponses
+    ) -> Tuple[bytes, int]:
+        """Reference: state/execution.go:211-258 — mempool locked and
+        flushed around the app Commit, then mempool.Update."""
+        self._mempool.lock()
+        try:
+            # flush so no async CheckTx races the Commit
+            self._mempool.flush_app_conn()
+            res = self._proxy_app.commit_sync()
+            self._logger.info(
+                "committed state",
+                height=block.header.height,
+                num_txs=len(block.data.txs),
+                app_hash=res.data.hex(),
+            )
+            deliver_txs = abci_responses.deliver_txs
+            self._mempool.update(
+                block.header.height,
+                [bytes(tx) for tx in block.data.txs],
+                deliver_txs,
+            )
+            return res.data, res.retain_height
+        finally:
+            self._mempool.unlock()
+
+    def _fire_events(
+        self,
+        block: Block,
+        block_id: BlockID,
+        abci_responses: ABCIResponses,
+        validator_updates: List[Validator],
+    ) -> None:
+        """Reference: state/execution.go fireEvents :200, :453-505."""
+        self._event_bus.publish_event_new_block(
+            EventDataNewBlock(
+                block=block,
+                result_begin_block=abci_responses.begin_block,
+                result_end_block=abci_responses.end_block,
+            )
+        )
+        self._event_bus.publish_event_new_block_header(
+            EventDataNewBlockHeader(
+                header=block.header,
+                num_txs=len(block.data.txs),
+                result_begin_block=abci_responses.begin_block,
+                result_end_block=abci_responses.end_block,
+            )
+        )
+        for i, tx in enumerate(block.data.txs):
+            self._event_bus.publish_event_tx(
+                EventDataTx(
+                    height=block.header.height,
+                    index=i,
+                    tx=bytes(tx),
+                    result=abci_responses.deliver_txs[i],
+                )
+            )
+        if validator_updates:
+            self._event_bus.publish_event_validator_set_updates(
+                EventDataValidatorSetUpdates(validator_updates)
+            )
+
+
+# ---------------------------------------------------------------------------
+
+
+def exec_block_on_proxy_app(
+    proxy_app, block: Block, store: Store, initial_height: int, logger=None
+) -> ABCIResponses:
+    """BeginBlock → DeliverTx×N (pipelined async) → EndBlock.
+    Reference: state/execution.go:259-340."""
+    responses = ABCIResponses()
+    deliver_results: List[Optional[abci.ResponseDeliverTx]] = [None] * len(
+        block.data.txs
+    )
+
+    commit_info = get_begin_block_validator_info(block, store, initial_height)
+    byz_vals = []
+    for ev in block.evidence:
+        byz_vals.extend(ev.abci())
+
+    responses.begin_block = proxy_app.begin_block_sync(
+        abci.RequestBeginBlock(
+            hash=block.hash(),
+            header=block.header,
+            last_commit_info=commit_info,
+            byzantine_validators=byz_vals,
+        )
+    )
+
+    reqs = []
+    for i, tx in enumerate(block.data.txs):
+        reqs.append(
+            proxy_app.deliver_tx_async(abci.RequestDeliverTx(tx=bytes(tx)))
+        )
+    proxy_app.flush_sync()
+    for i, rr in enumerate(reqs):
+        res = rr.wait()
+        if res.kind == "exception":
+            raise RuntimeError(f"DeliverTx failed: {res.value.error}")
+        deliver_results[i] = res.value
+    responses.deliver_txs = deliver_results
+
+    responses.end_block = proxy_app.end_block_sync(
+        abci.RequestEndBlock(height=block.header.height)
+    )
+    return responses
+
+
+def get_begin_block_validator_info(
+    block: Block, store: Store, initial_height: int
+) -> abci.LastCommitInfo:
+    """Reference: state/execution.go getBeginBlockValidatorInfo :343-379."""
+    votes: List[abci.VoteInfo] = []
+    if block.header.height > initial_height:
+        last_val_set = store.load_validators(block.header.height - 1)
+        commit_size = len(block.last_commit.signatures)
+        val_count = len(last_val_set.validators)
+        if commit_size != val_count:
+            raise RuntimeError(
+                f"commit size ({commit_size}) doesn't match valset length "
+                f"({val_count}) at height {block.header.height - 1}"
+            )
+        for i, cs in enumerate(block.last_commit.signatures):
+            val = last_val_set.validators[i]
+            votes.append(
+                abci.VoteInfo(
+                    validator=abci.Validator(val.address, val.voting_power),
+                    signed_last_block=not cs.is_absent(),
+                )
+            )
+    return abci.LastCommitInfo(round=block.last_commit.round, votes=votes)
+
+
+def validate_validator_updates(
+    abci_updates: List[abci.ValidatorUpdate], params
+) -> None:
+    """Reference: state/execution.go validateValidatorUpdates :382-401."""
+    for u in abci_updates:
+        if u.power < 0:
+            raise ValueError(f"voting power can't be negative: {u}")
+        if u.power == 0:
+            continue  # deletes are ok
+        if u.pub_key.type not in params.pub_key_types:
+            raise ValueError(
+                f"validator {u} is using pubkey {u.pub_key.type}, which is "
+                f"unsupported for consensus"
+            )
+
+
+def validator_from_update(u: abci.ValidatorUpdate) -> Validator:
+    pk = pub_key_from_proto(u.pub_key)
+    return Validator.new(pk, u.power)
+
+
+def update_state(
+    state: State,
+    block_id: BlockID,
+    header,
+    abci_responses: ABCIResponses,
+    validator_updates: List[Validator],
+) -> State:
+    """Pure state transition (reference: state/execution.go updateState
+    :403-471)."""
+    n_val_set = state.next_validators.copy()
+
+    last_height_vals_changed = state.last_height_validators_changed
+    if validator_updates:
+        n_val_set.update_with_change_set(validator_updates)
+        last_height_vals_changed = header.height + 1 + 1
+
+    n_val_set.increment_proposer_priority(1)
+
+    next_params = state.consensus_params
+    last_height_params_changed = state.last_height_consensus_params_changed
+    if abci_responses.end_block.consensus_param_updates is not None:
+        next_params = state.consensus_params.update(
+            abci_responses.end_block.consensus_param_updates
+        )
+        next_params.validate_basic()
+        last_height_params_changed = header.height + 1
+
+    new_state = State(
+        version=state.version,
+        chain_id=state.chain_id,
+        initial_height=state.initial_height,
+        last_block_height=header.height,
+        last_block_id=block_id,
+        last_block_time=header.time,
+        next_validators=n_val_set,
+        validators=state.next_validators.copy(),
+        last_validators=state.validators.copy(),
+        last_height_validators_changed=last_height_vals_changed,
+        consensus_params=next_params,
+        last_height_consensus_params_changed=last_height_params_changed,
+        last_results_hash=abci_responses.results_hash(),
+        app_hash=b"",  # filled after Commit
+    )
+    return new_state
+
+
+def max_data_bytes_for(max_bytes: int, ev_size: int, num_vals: int) -> int:
+    """Reference: types.MaxDataBytes (types/block.go:278-292) with
+    MaxOverheadForBlock=11 (:39), MaxHeaderBytes=626 (:29), and
+    MaxCommitBytes(n) = 94 + (109+2)·n (:588,:591,:612-616)."""
+    MAX_OVERHEAD_FOR_BLOCK = 11
+    MAX_HEADER_BYTES = 626
+    MAX_COMMIT_OVERHEAD_BYTES = 94
+    MAX_COMMIT_SIG_BYTES = 109 + 2  # + repeated-field proto overhead
+    max_data = (
+        max_bytes
+        - MAX_OVERHEAD_FOR_BLOCK
+        - MAX_HEADER_BYTES
+        - MAX_COMMIT_OVERHEAD_BYTES
+        - num_vals * MAX_COMMIT_SIG_BYTES
+        - ev_size
+    )
+    if max_data < 0:
+        raise ValueError(
+            f"negative MaxDataBytes; Block.MaxBytes={max_bytes} is too small "
+            f"to accommodate header&lastCommit&evidence"
+        )
+    return max_data

@@ -1,0 +1,344 @@
+"""State persistence: state snapshot, per-height validator sets and
+
+Ported from cometbft_tpu/state/store.py.
+consensus params (with last-height-changed back-pointers), ABCI responses.
+
+Reference: state/store.go — keys :28-36, save :174-204, Bootstrap :207,
+PruneStates :243, LoadValidators :483 (back-pointer + checkpoint logic),
+saveValidatorsInfo :556 (persist full set only when changed or at
+checkpoint heights), ABCI responses :88 (DiscardABCIResponses option).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from cometbft_tpu_torch.abci import types as abci
+from cometbft_tpu_torch.libs import protoio
+from cometbft_tpu_torch.libs.db import DB
+from cometbft_tpu_torch.state import State
+from cometbft_tpu_torch.types.params import ConsensusParams
+from cometbft_tpu_torch.types.validator_set import ValidatorSet
+
+_STATE_KEY = b"stateKey"
+VAL_SET_CHECKPOINT_INTERVAL = 100000
+
+
+def _validators_key(height: int) -> bytes:
+    return b"validatorsKey:%d" % height
+
+
+def _params_key(height: int) -> bytes:
+    return b"consensusParamsKey:%d" % height
+
+
+def _abci_responses_key(height: int) -> bytes:
+    return b"abciResponsesKey:%d" % height
+
+
+class ErrNoValSetForHeight(ValueError):
+    def __init__(self, height: int):
+        super().__init__(f"could not find validator set for height #{height}")
+        self.height = height
+
+
+class ErrNoConsensusParamsForHeight(ValueError):
+    def __init__(self, height: int):
+        super().__init__(f"could not find consensus params for height #{height}")
+        self.height = height
+
+
+class ErrNoABCIResponsesForHeight(ValueError):
+    def __init__(self, height: int):
+        super().__init__(f"could not find results for height #{height}")
+        self.height = height
+
+
+@dataclass
+class ABCIResponses:
+    """proto state.ABCIResponses (state/types.proto:17-21)."""
+
+    deliver_txs: List[abci.ResponseDeliverTx] = field(default_factory=list)
+    end_block: Optional[abci.ResponseEndBlock] = None
+    begin_block: Optional[abci.ResponseBeginBlock] = None
+
+    def encode(self) -> bytes:
+        out = b""
+        for d in self.deliver_txs:
+            out += protoio.field_message(1, d.encode())
+        if self.end_block is not None:
+            out += protoio.field_message(2, self.end_block.encode())
+        if self.begin_block is not None:
+            out += protoio.field_message(3, self.begin_block.encode())
+        return out
+
+    @classmethod
+    def decode(cls, data: bytes) -> "ABCIResponses":
+        r = protoio.WireReader(data)
+        out = cls()
+        while not r.at_end():
+            f, wt = r.read_tag()
+            if f == 1:
+                out.deliver_txs.append(abci.ResponseDeliverTx.decode(r.read_bytes()))
+            elif f == 2:
+                out.end_block = abci.ResponseEndBlock.decode(r.read_bytes())
+            elif f == 3:
+                out.begin_block = abci.ResponseBeginBlock.decode(r.read_bytes())
+            else:
+                r.skip(wt)
+        return out
+
+    def results_hash(self) -> bytes:
+        """Merkle root over deterministic DeliverTx results
+        (reference: types.NewResults(...).Hash(), state/execution.go)."""
+        from cometbft_tpu_torch.crypto import merkle
+
+        leaves = []
+        for d in self.deliver_txs:
+            # deterministic subset: code, data, gas_wanted, gas_used
+            det = b""
+            if d.code:
+                det += protoio.field_varint(1, d.code)
+            det += protoio.field_bytes(2, d.data)
+            if d.gas_wanted:
+                det += protoio.field_varint(5, d.gas_wanted)
+            if d.gas_used:
+                det += protoio.field_varint(6, d.gas_used)
+            leaves.append(det)
+        return merkle.hash_from_byte_slices(leaves)
+
+
+def _encode_validators_info(
+    last_height_changed: int, val_set: Optional[ValidatorSet]
+) -> bytes:
+    out = b""
+    if val_set is not None:
+        out += protoio.field_message(1, val_set.encode())
+    if last_height_changed:
+        out += protoio.field_varint(2, last_height_changed)
+    return out
+
+
+def _decode_validators_info(data: bytes):
+    r = protoio.WireReader(data)
+    vs, lhc = None, 0
+    while not r.at_end():
+        f, wt = r.read_tag()
+        if f == 1:
+            vs = ValidatorSet.decode(r.read_bytes())
+        elif f == 2:
+            lhc = r.read_varint()
+        else:
+            r.skip(wt)
+    return vs, lhc
+
+
+def _encode_params_info(last_height_changed: int, params: ConsensusParams) -> bytes:
+    out = protoio.field_message(1, params.encode())
+    if last_height_changed:
+        out += protoio.field_varint(2, last_height_changed)
+    return out
+
+
+def _decode_params_info(data: bytes):
+    r = protoio.WireReader(data)
+    params, lhc = ConsensusParams.empty(), 0
+    while not r.at_end():
+        f, wt = r.read_tag()
+        if f == 1:
+            params = ConsensusParams.decode(r.read_bytes())
+        elif f == 2:
+            lhc = r.read_varint()
+        else:
+            r.skip(wt)
+    return params, lhc
+
+
+def _last_stored_height_for(height: int, last_height_changed: int) -> int:
+    checkpoint = height - height % VAL_SET_CHECKPOINT_INTERVAL
+    return max(checkpoint, last_height_changed)
+
+
+class Store:
+    def __init__(self, db: DB, discard_abci_responses: bool = False):
+        self._db = db
+        self._discard_abci_responses = discard_abci_responses
+        self._mtx = threading.RLock()
+
+    # -- state snapshot -----------------------------------------------------
+
+    def load(self) -> Optional[State]:
+        raw = self._db.get(_STATE_KEY)
+        if not raw:
+            return None
+        return State.decode(raw)
+
+    def save(self, state: State) -> None:
+        """Reference semantics (store.go:178-204): persist next validators
+        at H+2's slot, params at H+1, then the snapshot."""
+        with self._mtx:
+            next_height = state.last_block_height + 1
+            if next_height == 1:
+                next_height = state.initial_height
+                self._save_validators_info(next_height, next_height, state.validators)
+            self._save_validators_info(
+                next_height + 1,
+                state.last_height_validators_changed,
+                state.next_validators,
+            )
+            self._save_params_info(
+                next_height,
+                state.last_height_consensus_params_changed,
+                state.consensus_params,
+            )
+            self._db.set_sync(_STATE_KEY, state.encode())
+
+    def bootstrap(self, state: State) -> None:
+        """Statesync entry point (store.go:207-233)."""
+        with self._mtx:
+            height = state.last_block_height + 1
+            if height == 1:
+                height = state.initial_height
+            if height > 1 and state.last_validators and state.last_validators.validators:
+                self._save_validators_info(height - 1, height - 1, state.last_validators)
+            self._save_validators_info(height, height, state.validators)
+            self._save_validators_info(height + 1, height + 1, state.next_validators)
+            self._save_params_info(
+                height,
+                state.last_height_consensus_params_changed,
+                state.consensus_params,
+            )
+            self._db.set_sync(_STATE_KEY, state.encode())
+
+    # -- validators ---------------------------------------------------------
+
+    def _save_validators_info(
+        self, height: int, last_height_changed: int, val_set: ValidatorSet
+    ) -> None:
+        if last_height_changed > height:
+            raise ValueError("lastHeightChanged cannot be greater than height")
+        persist = (
+            height == last_height_changed
+            or height % VAL_SET_CHECKPOINT_INTERVAL == 0
+        )
+        self._db.set(
+            _validators_key(height),
+            _encode_validators_info(
+                last_height_changed, val_set if persist else None
+            ),
+        )
+
+    def load_validators(self, height: int) -> ValidatorSet:
+        raw = self._db.get(_validators_key(height))
+        if not raw:
+            raise ErrNoValSetForHeight(height)
+        vs, lhc = _decode_validators_info(raw)
+        if vs is None or not vs.validators:
+            last_stored = _last_stored_height_for(height, lhc)
+            raw2 = self._db.get(_validators_key(last_stored))
+            if not raw2:
+                raise ErrNoValSetForHeight(height)
+            vs, _ = _decode_validators_info(raw2)
+            if vs is None or not vs.validators:
+                raise ErrNoValSetForHeight(height)
+            vs.increment_proposer_priority(height - last_stored)
+        return vs
+
+    # -- consensus params ---------------------------------------------------
+
+    def _save_params_info(
+        self, height: int, last_height_changed: int, params: ConsensusParams
+    ) -> None:
+        persist = height == last_height_changed
+        self._db.set(
+            _params_key(height),
+            _encode_params_info(
+                last_height_changed,
+                params if persist else ConsensusParams.empty(),
+            ),
+        )
+
+    def load_consensus_params(self, height: int) -> ConsensusParams:
+        raw = self._db.get(_params_key(height))
+        if not raw:
+            raise ErrNoConsensusParamsForHeight(height)
+        params, lhc = _decode_params_info(raw)
+        if params.is_empty():
+            raw2 = self._db.get(_params_key(lhc))
+            if not raw2:
+                raise ErrNoConsensusParamsForHeight(height)
+            params, _ = _decode_params_info(raw2)
+        return params
+
+    # -- ABCI responses -----------------------------------------------------
+
+    def save_abci_responses(self, height: int, responses: ABCIResponses) -> None:
+        if self._discard_abci_responses:
+            return
+        self._db.set_sync(_abci_responses_key(height), responses.encode())
+
+    def load_abci_responses(self, height: int) -> ABCIResponses:
+        if self._discard_abci_responses:
+            raise ErrNoABCIResponsesForHeight(height)
+        raw = self._db.get(_abci_responses_key(height))
+        if not raw:
+            raise ErrNoABCIResponsesForHeight(height)
+        return ABCIResponses.decode(raw)
+
+    # -- genesis pin (node.go:1394-1449) ------------------------------------
+
+    _GENESIS_HASH_KEY = b"genesisDocHash"
+
+    def load_genesis_doc_hash(self):
+        """The genesis hash pinned at first boot, or None."""
+        return self._db.get(self._GENESIS_HASH_KEY)
+
+    def save_genesis_doc_hash(self, h: bytes) -> None:
+        self._db.set_sync(self._GENESIS_HASH_KEY, h)
+
+    # -- pruning ------------------------------------------------------------
+
+    def prune_states(self, from_height: int, to_height: int) -> None:
+        """Delete state artifacts in [from, to), keeping back-pointer
+        targets and checkpoints (store.go:243-330)."""
+        if from_height <= 0 or to_height <= 0:
+            raise ValueError("from and to heights must be greater than 0")
+        if from_height >= to_height:
+            raise ValueError("from height must be lower than to height")
+
+        raw = self._db.get(_validators_key(to_height))
+        if not raw:
+            raise ErrNoValSetForHeight(to_height)
+        vs_to, vs_lhc = _decode_validators_info(raw)
+        keep_vals = set()
+        if vs_to is None or not vs_to.validators:
+            keep_vals.add(vs_lhc)
+            keep_vals.add(_last_stored_height_for(to_height, vs_lhc))
+
+        raw = self._db.get(_params_key(to_height))
+        if not raw:
+            raise ErrNoConsensusParamsForHeight(to_height)
+        p_to, p_lhc = _decode_params_info(raw)
+        keep_params = set()
+        if p_to.is_empty():
+            keep_params.add(p_lhc)
+
+        batch = self._db.new_batch()
+        for h in range(to_height - 1, from_height - 1, -1):
+            if h in keep_vals:
+                # materialize the full set so direct loads keep working
+                vs = self.load_validators(h)
+                self._db.set(
+                    _validators_key(h), _encode_validators_info(h, vs)
+                )
+            else:
+                batch.delete(_validators_key(h))
+            if h in keep_params:
+                params = self.load_consensus_params(h)
+                self._db.set(_params_key(h), _encode_params_info(h, params))
+            else:
+                batch.delete(_params_key(h))
+            batch.delete(_abci_responses_key(h))
+        batch.write_sync()

@@ -47,3 +47,20 @@ def canonical_vote_bytes(
     out += protoio.field_message(5, timestamp.encode())
     out += protoio.field_string(6, chain_id)
     return protoio.marshal_delimited(out)
+
+
+def canonical_proposal_bytes(chain_id: str, proposal) -> bytes:
+    """Sign bytes for a Proposal: MarshalDelimited(CanonicalProposal)
+    (types/proposal.go ProposalSignBytes): type=1, height=2 sfixed64,
+    round=3 sfixed64, pol_round=4 int64, block_id=5, timestamp=6,
+    chain_id=7."""
+    out = protoio.field_varint(1, proposal.type)
+    out += protoio.field_sfixed64(2, proposal.height)
+    out += protoio.field_sfixed64(3, proposal.round)
+    out += protoio.field_varint(4, proposal.pol_round)
+    cbid = canonicalize_block_id(proposal.block_id)
+    if cbid is not None:
+        out += protoio.field_message(5, cbid)
+    out += protoio.field_message(6, proposal.timestamp.encode())
+    out += protoio.field_string(7, chain_id)
+    return protoio.marshal_delimited(out)

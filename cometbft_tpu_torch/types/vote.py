@@ -22,6 +22,7 @@ from cometbft_tpu_torch.types import canonical
 SIGNED_MSG_TYPE_UNKNOWN = 0
 SIGNED_MSG_TYPE_PREVOTE = 1
 SIGNED_MSG_TYPE_PRECOMMIT = 2
+SIGNED_MSG_TYPE_PROPOSAL = 32
 
 
 def is_vote_type_valid(t: int) -> bool:

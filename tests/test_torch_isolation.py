@@ -1,7 +1,8 @@
 """The port stands alone: importing it, or chip_smoke.py, loads neither JAX
 nor any module of the reference package, and nothing falls back to the CPU
-when the card is missing: not the entry points, and not the verify plane
-(a supervisor or scheduler over "gpu" raises when it is built).
+when the card is missing: not the entry points, not the verify plane
+(a supervisor or scheduler over "gpu" raises when it is built), and not
+block execution (a ``BlockExecutor`` over "gpu" raises when it is built).
 
 The import check runs in a fresh interpreter, so what this test process
 has already imported (the JAX package, through tests/conftest.py) does not
@@ -19,6 +20,7 @@ import sys
 import torch
 
 import cometbft_tpu_torch
+from cometbft_tpu_torch import native
 from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import purepy
@@ -62,6 +64,30 @@ def check_imports_in_a_fresh_interpreter(tmp_path):
     )
     assert {
         "cometbft_tpu_torch.abci.types",
+        "cometbft_tpu_torch.abci.application",
+        "cometbft_tpu_torch.abci.client",
+        "cometbft_tpu_torch.abci.kvstore",
+        "cometbft_tpu_torch.libs.amino_json",
+        "cometbft_tpu_torch.libs.db",
+        "cometbft_tpu_torch.libs.fail",
+        "cometbft_tpu_torch.libs.pubsub",
+        "cometbft_tpu_torch.libs.pubsub.pubsub",
+        "cometbft_tpu_torch.libs.pubsub.query",
+        "cometbft_tpu_torch.native",
+        "cometbft_tpu_torch.proxy",
+        "cometbft_tpu_torch.state",
+        "cometbft_tpu_torch.state.execution",
+        "cometbft_tpu_torch.state.metrics",
+        "cometbft_tpu_torch.state.store",
+        "cometbft_tpu_torch.state.validation",
+        "cometbft_tpu_torch.store",
+        "cometbft_tpu_torch.store.block_store",
+        "cometbft_tpu_torch.types.event_bus",
+        "cometbft_tpu_torch.types.genesis",
+        "cometbft_tpu_torch.types.params",
+        "cometbft_tpu_torch.types.priv_validator",
+        "cometbft_tpu_torch.types.proposal",
+        "cometbft_tpu_torch.version",
         "cometbft_tpu_torch.crypto.cuda.topology",
         "cometbft_tpu_torch.crypto.decisions",
         "cometbft_tpu_torch.crypto.faults",
@@ -193,6 +219,7 @@ def check_light_verifier_needs_the_card(tmp_path, monkeypatch):
     light_verifier.verify_adjacent(*args, backend="cpu")
     ran = []
     monkeypatch.setattr(purepy, "ed25519_verify", lambda *a: ran.append("signature"))
+    monkeypatch.setattr(native, "ed25519_verify_batch", lambda *a, **k: ran.append("signature"))
     real_hash = ValidatorSet.hash
     monkeypatch.setattr(ValidatorSet, "hash", lambda self, device="cuda": ran.append(("hash", device)) or real_hash(self, device))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -217,6 +244,8 @@ def check_verify_plane_needs_the_card(tmp_path):
         "from cometbft_tpu_torch.crypto import faults, purepy\n"
         "ran = []\n"
         "purepy.ed25519_verify = lambda *a: ran.append(a)\n"
+        "from cometbft_tpu_torch import native\n"
+        "native.ed25519_verify_batch = lambda *a, **k: ran.append(a)\n"
         "from cometbft_tpu_torch.crypto.scheduler import VerifyScheduler\n"
         "from cometbft_tpu_torch.crypto.supervisor import BackendSupervisor\n"
         "from cometbft_tpu_torch.crypto.cuda.topology import DeviceTopology\n"
@@ -262,6 +291,8 @@ def check_verify_plane_needs_its_kernels(tmp_path):
         f"build.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
         "ran = []\n"
         "purepy.ed25519_verify = lambda *a: ran.append(a)\n"
+        "from cometbft_tpu_torch import native\n"
+        "native.ed25519_verify_batch = lambda *a, **k: ran.append(a)\n"
         "from cometbft_tpu_torch.crypto import scheduler, supervisor\n"
         "from cometbft_tpu_torch.crypto.cuda.topology import DeviceTopology\n"
         "from cometbft_tpu_torch.libs.metrics import Registry\n"
@@ -319,6 +350,62 @@ def check_verify_plane_needs_its_kernels(tmp_path):
     ], r.stdout + r.stderr[-2000:]
 
 
+def check_block_executor_needs_the_card(tmp_path):
+    """``BlockExecutor`` over ``"gpu"`` (named or by default) raises when it
+    is built without a card, and with a card reported present and an nvcc
+    that fails it raises the build error; under ``"cpu"`` it is built. No
+    signature is verified on the host either way."""
+    nvcc = tmp_path / "nvcc-block"
+    nvcc.write_text("#!/bin/sh\necho 'nvcc fatal: injected failure' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    code = (
+        "import os, torch\n"
+        f"os.environ['NVCC'] = {str(nvcc)!r}\n"
+        "from cometbft_tpu_torch import native\n"
+        "from cometbft_tpu_torch.crypto import purepy\n"
+        "from cometbft_tpu_torch.crypto.cuda import build\n"
+        f"build.BUILD_DIR = {str(tmp_path / 'build-block')!r}\n"
+        "ran = []\n"
+        "purepy.ed25519_verify = lambda *a: ran.append(a)\n"
+        "native.ed25519_verify_batch = lambda *a, **k: ran.append(a)\n"
+        "from cometbft_tpu_torch.abci.client import new_local_client_creator\n"
+        "from cometbft_tpu_torch.abci.kvstore import KVStoreApplication\n"
+        "from cometbft_tpu_torch.libs.db import MemDB\n"
+        "from cometbft_tpu_torch.proxy import new_app_conns\n"
+        "from cometbft_tpu_torch.state.execution import BlockExecutor\n"
+        "from cometbft_tpu_torch.state.store import Store\n"
+        "conns = new_app_conns(new_local_client_creator(KVStoreApplication()))\n"
+        "conns.start()\n"
+        "def make(**kw):\n"
+        "    return BlockExecutor(Store(MemDB()), conns.consensus(), **kw)\n"
+        "cases = {'default': make, 'gpu': lambda: make(crypto_backend='gpu'),\n"
+        "         'cpu': lambda: make(crypto_backend='cpu')}\n"
+        "for card in (False, True):\n"
+        "    torch.cuda.is_available = lambda: card\n"
+        "    for name, fn in cases.items():\n"
+        "        try:\n"
+        "            fn()\n"
+        "            print(card, name, 'built')\n"
+        "        except build.BuildError as e:\n"
+        "            print(card, name, 'build error', 'injected failure' in str(e))\n"
+        "        except RuntimeError as e:\n"
+        "            print(card, name, 'raised', 'CUDA' in str(e))\n"
+        "conns.stop()\n"
+        "print('VERIFIED', len(ran))\n"
+    )
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.splitlines() == [
+        "False default raised True",
+        "False gpu raised True",
+        "False cpu built",
+        "True default build error True",
+        "True gpu build error True",
+        "True cpu built",
+        "VERIFIED 0",
+    ], r.stdout + r.stderr[-2000:]
+
+
 def check_chip_smoke_fails_without_a_card(tmp_path):
     r = _run([_SMOKE])
     assert r.returncode != 0
@@ -342,5 +429,6 @@ def test_port_is_isolated_and_never_falls_back(tmp_path, monkeypatch):
         check_light_verifier_needs_the_card(tmp_path, m)
     check_verify_plane_needs_the_card(tmp_path)
     check_verify_plane_needs_its_kernels(tmp_path)
+    check_block_executor_needs_the_card(tmp_path)
     check_chip_smoke_fails_without_a_card(tmp_path)
     check_chip_smoke_fails_without_the_repo(tmp_path)

@@ -36,17 +36,20 @@ Then the port alone, over the plain-twin gpu verifier registered as
 resident commit route, the device), the indexed route through the key
 store, a fault plan in front of the gpu routes, ``warmup_canary`` and the
 ``verify_supervisor_cpu_verdicts`` count of every CPU-released batch;
-and the port's lane caps on the background audit and on hedging.
+and the port's lane caps on the background audit and on hedging, with
+the CPU ladder forced to pure Python.
 
 One test loops over every case (see tests/test_torch_field.py for why
 each of these files holds one test).
 """
 
+import os
 import threading
 
 import torch
 import torch_plane as tp
 
+from cometbft_tpu_torch import native
 from cometbft_tpu_torch.crypto import batch as port_batch
 from cometbft_tpu_torch.crypto.cuda import keystore
 from cometbft_tpu_torch.crypto.supervisor import classify_device_error
@@ -271,19 +274,25 @@ def check_port_gpu_routes():
 
 
 def check_port_lane_caps():
-    """The port's two lane caps (the reference has neither): a background
-    audit of a wider batch re-verifies a sample of ``AUDIT_MAX_LANES``
-    lanes, and still catches a corrupted dispatch; a dispatch wider than
-    ``HEDGE_MAX_LANES`` is never hedged, however late; the synchronous
-    audit checks the whole batch whatever the cap."""
+    """The port's two lane caps (the reference has neither), which hold
+    while the CPU ladder stands on pure Python (forced here: the native
+    rung turned off): a background audit of a wider batch re-verifies a
+    sample of ``AUDIT_MAX_LANES`` lanes, and still catches a corrupted
+    dispatch; a dispatch wider than ``HEDGE_MAX_LANES`` is never hedged,
+    however late; the synchronous audit checks the whole batch whatever
+    the cap. tests/test_torch_supervisor_native.py holds the native
+    rung, where the caps do not apply."""
     sv = tp.PORT.supervisor
     assert (sv.AUDIT_MAX_LANES, sv.HEDGE_MAX_LANES) == (256, 256)
-    items = tp.make_items(tp.PORT, 8, b"caps", poison=(6,))
-    want = tp.cpu_mask(tp.PORT, items)
-    # every lane bad, every verdict flipped to good: no triage, and any
-    # sample of the released mask disagrees with the CPU
-    bad = tp.make_items(tp.PORT, 8, b"caps", poison=range(8))
     try:
+        os.environ["CBFT_NATIVE_ED25519"] = "0"
+        native.reset()
+        assert native.rung() == native.PUREPY and sv.lane_caps_apply()
+        items = tp.make_items(tp.PORT, 8, b"caps", poison=(6,))
+        want = tp.cpu_mask(tp.PORT, items)
+        # every lane bad, every verdict flipped to good: no triage, and any
+        # sample of the released mask disagrees with the CPU
+        bad = tp.make_items(tp.PORT, 8, b"caps", poison=range(8))
         sv.AUDIT_MAX_LANES = 3
         for sync, corrupt, its, lanes in ((False, 1.0, bad, [3]), (False, 0.0, items, [1, 3]),
                                           (True, 0.0, items, [1, 8])):
@@ -315,6 +324,8 @@ def check_port_lane_caps():
             sup.stop()
     finally:
         sv.AUDIT_MAX_LANES = sv.HEDGE_MAX_LANES = 256
+        os.environ.pop("CBFT_NATIVE_ED25519", None)
+        native.reset()
 
 
 def test_supervisor_matches_reference():
